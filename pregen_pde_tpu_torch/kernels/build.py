@@ -1,0 +1,83 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into a shared
+library with a plain C interface, loaded with ctypes. The build happens at
+first use into ``pregen_pde_tpu_torch/_build/`` (git-ignored), with the
+source hash in the artifact name, so a changed source rebuilds and an
+unchanged one loads in milliseconds. A missing ``nvcc`` or a failed build
+raises, naming the cause; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+CUDA_HOME_DEFAULT = "/usr/local/cuda"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+# seconds the last build of each library took (0.0 when loaded from cache)
+build_seconds: dict[str, float] = {}
+
+
+def find_nvcc() -> str | None:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the default
+    toolkit location; None when there is none."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(on_path)
+    cands.append(os.path.join(CUDA_HOME_DEFAULT, "bin", "nvcc"))
+    return next((c for c in cands if os.path.isfile(c) and os.access(c, os.X_OK)), None)
+
+
+def library_path(name: str, build_dir: Path = BUILD_DIR) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return build_dir / f"{name}_{tag}.so"
+
+
+def build(name: str, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile ``csrc/<name>.cu`` unless the hashed artifact exists."""
+    so_path = library_path(name, build_dir)
+    if so_path.exists():
+        build_seconds.setdefault(name, 0.0)
+        return so_path
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            f"cannot build CUDA kernel {name!r}: nvcc not found (looked in "
+            f"$CUDA_HOME/bin, PATH and {CUDA_HOME_DEFAULT}/bin)"
+        )
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed building {name!r} (rc {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so_path)  # atomic against concurrent builds
+    build_seconds[name] = time.perf_counter() - t0
+    return so_path
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and dlopen ``csrc/<name>.cu``; cached per process."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = _loaded[name] = ctypes.CDLL(str(build(name)))
+    return lib

@@ -1,0 +1,131 @@
+"""Port parity: the pseudo-spectral NS solver and the CN+AB2 stepper (K1).
+
+The solver's operators and packed steppers run in float64 against the JAX
+package (bar 1e-10). K1's wrapper, on CPU tensors, runs its plain version
+and is held against the JAX Pallas kernel run in interpret mode (bar 5e-5,
+as in ``tests/test_spectral_ns_pallas.py``). The kernel itself runs only on
+a CUDA card: its tests are in ``tests/test_torch_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pregen_pde_tpu.core.config import NSVorticityConfig
+from pregen_pde_tpu.solvers import spectral_ns_pallas as jsnp
+from pregen_pde_tpu.solvers.spectral_ns import NSVorticitySolver as JaxSolver
+from pregen_pde_tpu.solvers.spectral_ns import cfl_dt as jax_cfl_dt
+from pregen_pde_tpu_torch.solvers import spectral_ns as tsn
+from pregen_pde_tpu_torch.solvers import spectral_ns_cuda as tsnc
+from pregen_pde_tpu_torch.utils.parity import rel_l2, to_numpy, to_torch
+
+F64 = 1e-10  # float64 parity bar: same algorithm, two FFT libraries
+
+
+def _w0(n, batch, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(batch, n, n))
+
+
+@pytest.mark.parametrize("forcing", ["fno", "kolmogorov", "none"])
+def test_constants_and_forcing_match_jax(forcing):
+    cfg = NSVorticityConfig(resolution=32, forcing=forcing)
+    jsol, tsol = JaxSolver(cfg), tsn.NSVorticitySolver(cfg)
+    c = tsn.constants(tsol.grid, torch.float64)
+    kx, ky, ik2, de = (np.asarray(a) for a in jsol._consts_full(jnp.float64))
+    np.testing.assert_array_equal(to_numpy(c["kx"]), kx)
+    np.testing.assert_array_equal(to_numpy(c["ky"]), ky)
+    np.testing.assert_array_equal(to_numpy(c["inv_k2"]), ik2)
+    np.testing.assert_array_equal(to_numpy(c["dealias"]), de)
+    np.testing.assert_array_equal(to_numpy(c["k2"]), jsol.grid.k2_full)
+    from pregen_pde_tpu.solvers.spectral_ns import make_forcing as jax_make_forcing
+
+    fj = jax_make_forcing(cfg, jsol.grid)
+    ft = tsn.forcing_hat(cfg, tsol.grid, torch.float64, "cpu")
+    if fj is None:
+        assert ft is None
+    else:
+        np.testing.assert_array_equal(tsn.make_forcing(cfg, tsol.grid), fj)
+        ref = np.asarray(jnp.fft.fft2(jnp.asarray(fj, jnp.float64)))
+        assert np.max(np.abs(to_numpy(ft) - ref)) <= F64 * np.max(np.abs(ref))
+
+
+def test_operators_match_jax_f64():
+    cfg = NSVorticityConfig(resolution=32, drag=0.05)
+    jsol, tsol = JaxSolver(cfg), tsn.NSVorticitySolver(cfg)
+    w = _w0(32, 2, seed=1)
+    wj, wt = jnp.asarray(w), to_torch(w)
+    jf = jax.vmap(jsol.fields_from_vorticity)(wj)
+    tf = tsol.fields_from_vorticity(wt)
+    for k in ("u", "v", "p", "w"):
+        assert tf[k].dtype == torch.float64
+        assert rel_l2(tf[k], np.asarray(jf[k])) <= F64, k
+    uj, vj = jax.vmap(jsol.velocity)(jnp.fft.rfft2(wj))
+    ut, vt = tsol.velocity(torch.fft.rfft2(wt))
+    assert rel_l2(ut, np.asarray(uj)) <= F64 and rel_l2(vt, np.asarray(vj)) <= F64
+    pj = jax.vmap(jsol.pressure)(jnp.fft.rfft2(wj))
+    assert rel_l2(tsol.pressure(torch.fft.rfft2(wt)), np.asarray(pj)) <= F64
+    assert abs(tsn.cfl_dt(tsol, wt[0]) - jax_cfl_dt(jsol, wj[0])) <= F64
+
+
+@pytest.mark.parametrize("scheme", ["ab2", "heun"])
+def test_packed_trajectory_matches_jax_f64(scheme):
+    cfg = NSVorticityConfig(resolution=32, viscosity=1e-3, dt=1e-3, t_end=6e-3,
+                            n_snapshots=3, include_initial=True, forcing="fno",
+                            drag=0.1)
+    jsol, tsol = JaxSolver(cfg), tsn.NSVorticitySolver(cfg)
+    method = {"ab2": "cn_ab2_packed", "heun": "cn_heun_packed"}[scheme]
+    w0 = _w0(32, 3, seed=2)
+    nu = np.array([1e-3, 3e-3, 2e-2])
+    ref = np.asarray(jax.vmap(jsol.make_trajectory_fn_nu(method), in_axes=(0, 0, None))(
+        jnp.asarray(w0), jnp.asarray(nu), 2))
+    got = tsol.make_trajectory_fn_nu(method)(to_torch(w0), to_torch(nu), 2)
+    assert got.dtype == torch.float64 and tuple(got.shape) == ref.shape == (3, 4, 32, 32)
+    assert rel_l2(got, ref) <= F64
+    # the batched entry point serves the same function
+    got_b = tsol.make_batched_trajectory_fn_nu(method)(to_torch(w0), to_torch(nu), 2)
+    np.testing.assert_array_equal(to_numpy(got_b), to_numpy(got))
+    with pytest.raises(NotImplementedError):
+        tsol.make_trajectory_fn_nu("cn_heun")
+
+
+@pytest.mark.parametrize("output", ["vorticity", "fields"])
+def test_k1_plain_path_matches_pallas_interpret(output):
+    """K1's wrapper on CPU tensors (its plain version) vs the JAX Pallas
+    kernel in interpret mode: 128², B=2, 3 snapshots × 1 step, f32."""
+    n = 128
+    cfg = NSVorticityConfig(resolution=n, viscosity=1e-3, dt=1e-3, t_end=3e-3,
+                            n_snapshots=3, include_initial=True, forcing="fno")
+    w0 = _w0(n, 2, seed=3).astype(np.float32)
+    nu = np.array([1e-3, 2e-3], np.float32)
+    ref = np.asarray(jsnp.build_batched_traj(JaxSolver(cfg), output=output)(
+        jnp.asarray(w0), jnp.asarray(nu)))
+    tsnc.reset_launches()
+    traj = tsnc.build_batched_traj(tsn.NSVorticitySolver(cfg), output=output)
+    got = traj(to_torch(w0), to_torch(nu))
+    assert tsnc.launches == 0  # CPU tensors never reach the CUDA library
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
+    # the Pallas fast tier's snapshot epilogue is 3-pass split-bf16 (~1e-5)
+    err = np.max(np.abs(to_numpy(got) - ref)) / np.max(np.abs(ref))
+    assert err < 5e-5, err
+
+
+def test_k1_wrapper_validates():
+    cfg = NSVorticityConfig(resolution=96)
+    with pytest.raises(ValueError, match="handles n"):
+        tsnc.build_batched_traj(tsn.NSVorticitySolver(cfg))
+    cfg = NSVorticityConfig(resolution=128)
+    sol = tsn.NSVorticitySolver(cfg)
+    with pytest.raises(ValueError, match="precision"):
+        tsnc.build_batched_traj(sol, precision="tf32")
+    with pytest.raises(ValueError, match="output"):
+        tsnc.build_batched_traj(sol, output="uvp")
+    with pytest.raises(ValueError, match="w0 must be"):
+        tsnc.build_batched_traj(sol)(torch.zeros(2, 64, 64))
+    assert [tsnc.supported(n) for n in (64, 128, 256, 384, 512, 1024, 2048)] == [
+        False, True, True, False, True, True, False]
+    x = torch.randn(2, 128, 128, dtype=torch.complex64)
+    torch.testing.assert_close(tsnc.fft2(x), torch.fft.fft2(x))
+    torch.testing.assert_close(tsnc.fft2(x, inverse=True), torch.fft.ifft2(x))
