@@ -27,9 +27,37 @@ Phases (any failure exits nonzero; no phase catches a failure):
    outputs, and K1 vs plain float32 on those inputs (relative L2 ≤ 1e-5 at
    every snapshot).
 
+7. K2 (the Chorin projection stepper) is built in phase 2, in parallel
+   with K1 (one ``nvcc`` each); its build seconds are printed here;
+8. K2 against its plain float32 version on the same inputs, per-snapshot
+   relative L2 of the (u, v, p) frames, worst over the batch, ≤ 7e-5 at
+   every snapshot: (a) channel 128², B=8, ``fpo_multi_hole`` masks, u_max
+   across Re 100…10000, the batch's smallest CFL dt, 20 snapshots × 50
+   steps; (b) cavity 128², B=4, the same Re range; (c) channel 256², B=4,
+   5 × 20 steps. Then K2's interior divergence (inlet-aware, [2:-2, 2:-2])
+   on a no-hole channel must be ≤ 2× the plain version's;
+9. the Ghia cavity through K2 at 128², Re 100 and 400: centreline
+   deviations < 0.05/0.03 and < 0.07/0.06 (u/v), extrema within 8%;
+10. the masked main path: ``generate --workload fpo_multi_hole --n 32
+    --resolution 128 --batch-size 32 --time-scale 1.0`` and ``--workload
+    ldc_regular --n 8 --batch-size 8`` in subprocesses; each shard must be
+    (N, 21, 128, 128, 6), finite, with a binary mask (0 for ldc, ≥ 2·16²
+    hole cells per multi-hole trajectory), an SDF in [−1, 1] that is < 0
+    exactly where the mask is 1, Re_norm in [0, 1], the inlet (fpo: u on
+    column 0 = parabolic_inlet × Re·ν/L) or the lid (ldc: u on the top row
+    = u_max) in every frame at relative 1e-5, and K2 launches > 0;
+11. K2 and the plain version in µs per trajectory-step at B = 1, 8, 32
+    (128², ``fpo_multi_hole`` masks, Re 5000, 1000 steps). Their end states
+    are printed against each other and against K2 with u_max moved by one
+    ulp, for information only: 1000 steps there are 60 time units, longer
+    than the shedding flow keeps float32 roundoff small (NVIDIA H100: K2 vs
+    plain 3.1e-5 at B=1 and 8.3e-4 at B=32).
+
 The 1e-5 bar of K1 against the plain float32 version is about 30× what the
 two differ by when both are right (2.4e-7 vorticity, 3.6e-7 fields at the
-north star, NVIDIA H100): a kernel error of its own of 1e-5 fails it.
+north star, NVIDIA H100): a kernel error of its own of 1e-5 fails it. The
+7e-5 bar of K2 is about 30× its worst case when both are right (2.3e-6 at
+phase 8 (a), growing over the snapshots; NVIDIA H100).
 
 Prints a kernels JSON line and the card line, then, as its last line,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -45,11 +73,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FFT_BAR = 2e-6
 K1_ABS_BAR = 2.6e-4
 K1_VS_PLAIN_BAR = 1e-5
+K2_VS_PLAIN_BAR = 7e-5
+GHIA_BARS = {100: (0.05, 0.03), 400: (0.07, 0.06)}
 
 
 def fail(msg: str) -> None:
@@ -101,6 +132,7 @@ def main() -> None:
     from pregen_pde_tpu_torch.datagen.writer import load_shards
     from pregen_pde_tpu_torch.fields.grf import grf_2d
     from pregen_pde_tpu_torch.kernels import build
+    from pregen_pde_tpu_torch.solvers import ns_projection_cuda as npc
     from pregen_pde_tpu_torch.solvers import schedules
     from pregen_pde_tpu_torch.solvers import spectral_ns_cuda as snc
     from pregen_pde_tpu_torch.solvers.spectral_ns import NSVorticitySolver
@@ -114,8 +146,11 @@ def main() -> None:
     say(f"[1] card: {card} | torch: {kind} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | {json.dumps(set_precision_policy(dev))}")
 
-    # -- 2. build ---------------------------------------------------------------
-    t0 = time.perf_counter()
+    # -- 2. build: one nvcc per source, all started together ---------------------
+    t0_build = t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(max_workers=2)
+    builds = {name: pool.submit(build.build, name) for name in (snc.LIB_NAME, npc.LIB_NAME)}
+    builds[snc.LIB_NAME].result()
     build.load(snc.LIB_NAME)
     say(f"[2] built {snc.LIB_NAME} (sm_90a) in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.build_seconds[snc.LIB_NAME]:.2f} s)")
@@ -255,8 +290,7 @@ def main() -> None:
             f"({times[output, 'plain'] * 1e3:.1f} ms) | K1 vs plain f32 max "
             f"per-snapshot rel L2 {err.max():.3e} | {card}")
     max_abs = float((outs["fields", "k1"] - outs["fields", "plain"]).abs().max())
-
-    say(json.dumps({"kernels": [{
+    k1_line = {
         "name": snc.LIB_NAME,
         "route": "cuda",
         "source": "pregen_pde_tpu_torch/csrc/spectral_ns_step.cu",
@@ -265,10 +299,224 @@ def main() -> None:
         "max_abs_err": max_abs,
         "ms": times["fields", "k1"] * 1e3,
         "plain_ms": times["fields", "plain"] * 1e3,
-    }]}))
+    }
+    k2_line = k2_phases(dev, card, builds[npc.LIB_NAME], t0_build)
+    pool.shutdown()
+    say(json.dumps({"kernels": [k1_line, k2_line]}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
+
+
+def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
+    """Phases 7-11: K2 and the masked-geometry main path. → K2's entry of
+    the kernels line."""
+    import numpy as np
+    import torch
+
+    from pregen_pde_tpu_torch.datagen.masked_ns import MaskedNSConfig, cfl_dt, sample_masks
+    from pregen_pde_tpu_torch.datagen.writer import load_shards
+    from pregen_pde_tpu_torch.kernels import build
+    from pregen_pde_tpu_torch.solvers import ns_projection_cuda as npc
+    from pregen_pde_tpu_torch.solvers import schedules
+    from pregen_pde_tpu_torch.solvers import spectral_ns_cuda as snc
+    from pregen_pde_tpu_torch.solvers.ns_projection import (
+        ProjectionConfig, ProjectionSolver, parabolic_inlet)
+    from pregen_pde_tpu_torch.solvers.validation import run_cavity
+    from pregen_pde_tpu_torch.utils.parity import per_snapshot_rel_l2
+
+    # -- 7. K2's build (started in phase 2) -----------------------------------------
+    k2_build.result()
+    build.load(npc.LIB_NAME)
+    say(f"[7] built {npc.LIB_NAME} (sm_90a): done {time.perf_counter() - t0_build:.2f} s "
+        f"after the parallel builds started (nvcc {build.build_seconds[npc.LIB_NAME]:.2f} s)")
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def inputs(n, domain, B, re):
+        cfg = MaskedNSConfig(pipeline="fpo_multi_hole" if domain == "channel"
+                             else "ldc_regular", resolution=n)
+        masks = sample_masks(gen, cfg, B)
+        u_max = np.asarray(re, np.float64) * cfg.viscosity / cfg.length
+        dt = min(cfl_dt(cfg, float(u)) for u in u_max)  # the batch's smallest CFL dt
+        return masks, torch.as_tensor(u_max, dtype=torch.float32, device=dev), dt
+
+    def k2_vs_plain(k2, p32, label):
+        torch.cuda.synchronize()
+        if not torch.isfinite(k2).all():
+            fail(f"K2 {label}: non-finite output")
+        err = per_snapshot_rel_l2(k2, p32)
+        if not err.max() <= K2_VS_PLAIN_BAR:
+            fail(f"K2 vs plain f32 ({label}): worst snapshot {err.max():.3e} > "
+                 f"{K2_VS_PLAIN_BAR:.0e} (per snapshot: {err.tolist()})")
+        return err
+
+    # -- 8. K2 against its plain float32 version --------------------------------------
+    re_range = lambda B: np.linspace(schedules.RE_MIN, schedules.RE_MAX, B)
+    max_abs = None
+    for label, n, domain, B, S, inner in (("a", 128, "channel", 8, 20, 50),
+                                           ("b", 128, "cavity", 4, 20, 50),
+                                           ("c", 256, "channel", 4, 5, 20)):
+        sol = ProjectionSolver(ProjectionConfig(resolution=n, domain=domain, n_snapshots=S))
+        masks, u_max, dt = inputs(n, domain, B, re_range(B))
+        k2 = npc.build_batched_traj(sol)(masks, u_max, inner, dt)
+        p32 = sol.make_batched_trajectory_fn()(masks, u_max, inner, dt)
+        err = k2_vs_plain(k2, p32, f"({label}) {domain} {n}^2 B={B}")
+        if max_abs is None:  # the main path's shape: the kernels line's error
+            max_abs = float((k2 - p32).abs().max())
+        say(f"[8] ({label}) {domain} {n}^2 B={B} {S} x {inner} steps dt {dt:.5g}: K2 vs "
+            f"plain f32 per-snapshot rel L2 first / mid / last {err[1]:.3e} / "
+            f"{err[S // 2]:.3e} / {err[S]:.3e}, worst {err.max():.3e} "
+            f"(bar {K2_VS_PLAIN_BAR:.0e}); max abs {float((k2 - p32).abs().max()):.3e}")
+
+    # interior divergence on a no-hole channel, inlet-aware
+    n = 128
+    sol = ProjectionSolver(ProjectionConfig(resolution=n, n_snapshots=5))
+    u_max = torch.tensor([5000.0, 10000.0], device=dev) * 1.5e-5 / 2.0
+    dt = cfl_dt(MaskedNSConfig(), float(u_max.max()))
+    zero = torch.zeros((2, n, n), device=dev)
+    dx = sol.cfg.length / n
+    inlet = torch.as_tensor(parabolic_inlet(n, 1.0), dtype=torch.float64, device=dev)
+
+    def interior_div(frames):
+        f = frames[:, -1].double()
+        div = sol.divergence(f[..., 0], f[..., 1], dx)
+        div[..., :, 0] -= inlet * u_max.double()[:, None] / dx
+        return float(div[..., 2:-2, 2:-2].abs().max())
+
+    d_k2 = interior_div(npc.build_batched_traj(sol)(zero, u_max, 20, dt))
+    d_plain = interior_div(sol.make_batched_trajectory_fn()(zero, u_max, 20, dt))
+    say(f"[8] no-hole channel 128^2, Re 5000/10000, 5 x 20 steps: interior divergence "
+        f"K2 {d_k2:.3e} | plain f32 {d_plain:.3e} (bar: K2 <= 2x plain)")
+    if not d_k2 <= 2.0 * d_plain:
+        fail(f"K2 interior divergence {d_k2:.3e} > 2x plain {d_plain:.3e}")
+
+    # -- 9. Ghia cavity through K2 --------------------------------------------------------
+    for re, (tol_u, tol_v) in GHIA_BARS.items():
+        t0 = time.perf_counter()
+        r = run_cavity(re, n=128, device=dev)
+        secs = time.perf_counter() - t0
+        ext = {k: (r[f"{k}_model"], r[f"{k}_ghia"]) for k in ("u_min", "v_min", "v_max")}
+        say(f"[9] Ghia Re={re} 128^2 through K2: max dev u {r['max_abs_dev_u']:.4f} "
+            f"(bar {tol_u}) v {r['max_abs_dev_v']:.4f} (bar {tol_v}); extrema "
+            + ", ".join(f"{k} {m:.4f} vs {g:.4f}" for k, (m, g) in ext.items())
+            + f"; {r['steps']} steps dt {r['dt']:.5g} in {secs:.2f} s | {card}")
+        if not (r["max_abs_dev_u"] < tol_u and r["max_abs_dev_v"] < tol_v):
+            fail(f"Ghia Re={re}: deviations {r['max_abs_dev_u']}, {r['max_abs_dev_v']}")
+        for k, (m, g) in ext.items():
+            if not abs(m - g) <= 0.08 * abs(g):
+                fail(f"Ghia Re={re}: {k} {m} vs {g} beyond 8%")
+
+    # -- 10. the masked main path, through the CLI -----------------------------------------
+    snc.reset_launches()
+    npc.reset_launches()
+    k2_launches = 0
+    work = tempfile.mkdtemp(prefix="smoke_masked_", dir=build.BUILD_DIR)
+    try:
+        env = dict(os.environ, PREGEN_PDE_TPU_CACHE=os.path.join(work, "native"))
+        for workload, n_traj in (("fpo_multi_hole", 32), ("ldc_regular", 8)):
+            out = os.path.join(work, workload)
+            cmd = [sys.executable, "-m", "pregen_pde_tpu_torch", "generate", "--workload",
+                   workload, "--n", str(n_traj), "--resolution", "128", "--batch-size",
+                   str(n_traj), "--time-scale", "1.0", "--out", out]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                               timeout=600)
+            wall = time.perf_counter() - t0
+            if r.returncode != 0:
+                fail(f"generate {workload} rc {r.returncode}:\n{r.stdout[-2000:]}\n"
+                     f"{r.stderr[-4000:]}")
+            lines = [json.loads(l) for l in r.stdout.splitlines() if l.startswith("{")]
+            count = [l["kernel_launches"][npc.LIB_NAME] for l in lines
+                     if "kernel_launches" in l]
+            stats = [l["masked_ns"] for l in lines if "masked_ns" in l]
+            if len(count) != 1 or len(stats) != 1:
+                fail(f"generate {workload} printed no launch/stats line:\n{r.stdout[-2000:]}")
+            if count[0] <= 0:
+                fail(f"the {workload} main path never launched K2")
+            k2_launches += count[0]
+            data = load_shards(out)
+            check_masked_shard(data, workload, n_traj, parabolic_inlet, schedules)
+            say(f"[10] generate --workload {workload} --n {n_traj} --resolution 128 "
+                f"--batch-size {n_traj} --time-scale 1.0: {wall:.2f} s wall incl. start-up "
+                f"and build, {n_traj / wall:.3f} traj/s; {stats[0]['sub_buckets']} "
+                f"sub-buckets, {stats[0]['retries']} retries "
+                f"({stats[0]['retried_trajectories']} trajectories); K2 launches "
+                f"{count[0]}; shard {data.shape} finite, mask/SDF/Re/"
+                f"{'inlet' if workload != 'ldc_regular' else 'lid'} checks passed | {card}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # -- 11. K2 time against the plain version -----------------------------------------------
+    # 1000 steps at Re 5000's CFL dt are 60 time units, past the time over
+    # which the shedding flow keeps float32 roundoff small: the end states
+    # are printed against the plain version and against K2 with u_max moved
+    # by one ulp, for information; phase 8 holds K2 to its bar.
+    sol = ProjectionSolver(ProjectionConfig(resolution=128, n_snapshots=1))
+    k2 = npc.build_batched_traj(sol)
+    p = sol.make_batched_trajectory_fn()
+    steps = 1000
+    res = {}
+    for B in (1, 8, 32):
+        masks, u_max, dt = inputs(128, "channel", B, np.full(B, 5000.0))
+        k2(masks, u_max, 10, dt)  # warm-up: constants, allocator
+        p(masks, u_max, 2, dt)
+        out_k2, t_k2 = timed(lambda: k2(masks, u_max, steps, dt))
+        out_p, t_p = timed(lambda: p(masks, u_max, steps, dt))
+        nudged = k2(masks, u_max * (1.0 + 2.0 ** -23), steps, dt)
+        res[B] = (t_k2, t_p)
+        say(f"[11] 128^2 fpo_multi_hole B={B} {steps} steps: K2 "
+            f"{t_k2 / (steps * B) * 1e6:.3f} us/traj-step ({t_k2 * 1e3:.1f} ms) | plain "
+            f"{t_p / (steps * B) * 1e6:.3f} us/traj-step ({t_p * 1e3:.1f} ms) | end state, "
+            f"worst rel L2: K2 vs plain f32 {per_snapshot_rel_l2(out_k2, out_p)[1]:.3e}, "
+            f"K2 vs K2 with u_max + 1 ulp {per_snapshot_rel_l2(out_k2, nudged)[1]:.3e} "
+            f"(information) | {card}")
+    t_k2, t_p = res[32]
+    return {
+        "name": npc.LIB_NAME,
+        "route": "cuda",
+        "source": "pregen_pde_tpu_torch/csrc/ns_projection_step.cu",
+        "replaces": "pregen_pde_tpu/solvers/ns_projection_pallas.py:55",
+        "launches": k2_launches,
+        "max_abs_err": max_abs,
+        "ms": t_k2 * 1e3,
+        "plain_ms": t_p * 1e3,
+    }
+
+
+def check_masked_shard(data, workload: str, n_traj: int, parabolic_inlet, schedules) -> None:
+    """Phase 10's checks of one masked-geometry shard."""
+    import numpy as np
+
+    n = 128
+    if data.shape != (n_traj, 21, n, n, 6):
+        fail(f"{workload} shard shape {data.shape}")
+    if not np.isfinite(data).all():
+        fail(f"{workload} shard holds non-finite values")
+    mask, sdf, re_norm = data[..., 4], data[..., 5], data[..., 3]
+    if not np.isin(mask, (0.0, 1.0)).all():
+        fail(f"{workload}: mask is not binary")
+    holes = mask[:, 0].sum(axis=(1, 2))
+    if workload == "ldc_regular" and holes.max() != 0:
+        fail("ldc_regular: mask is not all fluid")
+    if workload == "fpo_multi_hole" and holes.min() < 2 * 16 * 16:
+        fail(f"fpo_multi_hole: {holes.min()} hole cells < 2·16²")
+    if not (sdf.min() >= -1.0 and sdf.max() <= 1.0 and ((sdf < 0) == (mask == 1)).all()):
+        fail(f"{workload}: SDF outside [-1, 1] or not < 0 exactly where mask = 1")
+    if not (re_norm.min() >= 0.0 and re_norm.max() <= 1.0):
+        fail(f"{workload}: Re_norm outside [0, 1]")
+    # the flow agrees with the Re channel: Umax = Re·ν/L (ν = 1.5e-5, L = 2)
+    u_max = schedules.denormalize_re(re_norm[:, 0, 0, 0].astype(np.float64)) * 1.5e-5 / 2.0
+    u = data[..., 0].astype(np.float64)
+    if workload == "ldc_regular":
+        got, ref = u[:, :, -1, :], np.broadcast_to(u_max[:, None, None], u[:, :, -1, :].shape)
+    else:
+        inlet = parabolic_inlet(n, 1.0).astype(np.float64)[1:n - 1]
+        got, ref = u[:, :, 1:n - 1, 0], inlet[None, None, :] * u_max[:, None, None]
+    rel = np.abs(got - ref).max(axis=(1, 2)) / np.abs(ref).max(axis=(1, 2))
+    if not rel.max() <= 1e-5:
+        fail(f"{workload}: {'lid' if workload == 'ldc_regular' else 'inlet'} u differs "
+             f"from Re·ν/L by rel {rel.max():.3e} > 1e-5")
 
 
 if __name__ == "__main__":

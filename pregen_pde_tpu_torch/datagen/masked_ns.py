@@ -1,0 +1,246 @@
+"""Masked-geometry NS dataset pipelines (port of ``datagen/masked_ns.py``):
+
+| pipeline          | geometry                          | difficulty axis |
+|-------------------|-----------------------------------|-----------------|
+| `fpo_regular`     | fixed central cylinder (channel)  | physics (Re)    |
+| `fpo_hole`        | one random 16² hole (channel)     | geometry        |
+| `fpo_multi_hole`  | 2–10 random holes (channel)       | geometry        |
+| `ldc_regular`     | none (lid-driven cavity)          | physics (Re)    |
+
+Per batch: Re ~ clip(N(5000, 2000²)) → Umax = Re·ν/L → the band-law horizon
+× ``time_scale`` → masks and their SDFs → horizon buckets, each split into
+sub-buckets by the power-of-two level of its members' own CFL dt and run at
+the smallest dt of the sub-bucket, padded to a power of two by repeating
+its first index → the storage cast on the device → the dt/2 retry of only
+the non-finite rows (``nonfinite_retries`` times, so the count stays exact)
+→ the (N, T, H, W, 6) contract ``[u, v, p, Re_norm, mask, SDF]``.
+
+The draws are split from the compute: ``draw_masked_inputs`` makes the Re
+normal ``z`` and the masks from an explicit ``torch.Generator``, and
+``generate_masked_ns_batch_from_inputs`` is a pure function of them, so a
+test can feed it JAX's own draws. On a CUDA device every sub-bucket runs
+through the hand-written CUDA stepper (``ns_projection_cuda``), and a
+config it does not handle raises; on the CPU the plain version runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import numpy as np
+import torch
+
+from pregen_pde_tpu_torch.fields.geometry import (
+    disk_mask,
+    sample_multi_holes,
+    sample_multi_holes_overlap,
+    sample_single_hole,
+    sdf_from_mask,
+)
+from pregen_pde_tpu_torch.solvers import schedules
+from pregen_pde_tpu_torch.solvers.ns_projection import ProjectionConfig, ProjectionSolver
+
+def cfl_dt(cfg: "MaskedNSConfig", u_max: float, safety: float = 0.5,
+           speedup: float | None = None) -> float:
+    """Explicit-CFL step dt ≤ safety·dx/(speedup·u_max), capped at cfg.dt;
+    ``speedup`` (default cfg.cfl_speedup) budgets the local acceleration in
+    constrictions between holes."""
+    dx = cfg.length / cfg.resolution
+    if speedup is None:
+        speedup = cfg.cfl_speedup
+    return min(cfg.dt, safety * dx / max(speedup * u_max, 1e-9))
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskedNSConfig:
+    """Same fields and defaults as the JAX package's ``MaskedNSConfig``."""
+
+    pipeline: str = "fpo_regular"  # fpo_regular | fpo_hole | fpo_multi_hole | ldc_regular
+    resolution: int = 128
+    length: float = 2.0
+    viscosity: float = 1.5e-5  # reference ν
+    dt: float = 0.2  # reference deltaT; the CFL dt caps it
+    n_snapshots: int = 20
+    re_mean: float = 5000.0
+    re_std: float = 2000.0
+    time_scale: float = 1.0  # multiplies the schedule's horizons
+    penalization_eta: float = 1e-3
+    cg_iters: int = 150
+    batch_size: int = 128
+    # fpo_multi_hole only: all holes share a central sub-box of side
+    # overlap_fraction·hole (the reference's allow_overlap=True)
+    hole_overlap: bool = False
+    overlap_fraction: float = 0.3
+    cfl_speedup: float = 3.5
+    nonfinite_retries: int = 2
+    # False = the legacy one-dt-per-horizon-bucket rule; not ported (it only
+    # regenerates old datasets bit-identically, which needs JAX's RNG)
+    per_traj_dt: bool = True
+
+
+def sample_masks(generator: torch.Generator, cfg: MaskedNSConfig, n: int) -> torch.Tensor:
+    """(n, res, res) float32 geometry masks on the generator's device."""
+    res = cfg.resolution
+    dev = generator.device
+    if cfg.pipeline == "fpo_regular":
+        # fixed central cylinder: a penalised disk of diameter res/8 at x = res/4
+        m = disk_mask(res, res / 2.0, res / 4.0, res / 16.0, device=dev)
+        return m[None].expand(n, res, res).contiguous()
+    if cfg.pipeline == "fpo_hole":
+        return sample_single_hole(generator, n, res)
+    if cfg.pipeline == "fpo_multi_hole":
+        hole_cells = max(res // 8, 4)  # 16 cells at 128²
+        if cfg.hole_overlap:
+            return sample_multi_holes_overlap(generator, n, res, hole_cells=hole_cells,
+                                              overlap_fraction=cfg.overlap_fraction)[0]
+        return sample_multi_holes(generator, n, res, hole_cells=hole_cells)[0]
+    if cfg.pipeline == "ldc_regular":
+        return torch.zeros((n, res, res), dtype=torch.float32, device=dev)
+    raise ValueError(cfg.pipeline)
+
+
+def _solver_for(cfg: MaskedNSConfig, u_max: float, t_end: float) -> ProjectionSolver:
+    domain = "cavity" if cfg.pipeline == "ldc_regular" else "channel"
+    return ProjectionSolver(ProjectionConfig(
+        resolution=cfg.resolution, length=cfg.length, viscosity=cfg.viscosity,
+        domain=domain, u_max=u_max, dt=cfg.dt, t_end=t_end,
+        n_snapshots=cfg.n_snapshots, penalization_eta=cfg.penalization_eta,
+        cg_iters=cfg.cg_iters,
+    ))
+
+
+def check_device_supported(cfg: MaskedNSConfig, device: torch.device) -> None:
+    """On a CUDA device the CUDA stepper must handle the config: raise,
+    naming the size, instead of running the plain version there."""
+    if torch.device(device).type != "cuda":
+        return
+    from pregen_pde_tpu_torch.solvers import ns_projection_cuda as npc
+
+    solver = _solver_for(cfg, 1.0, 1.0)
+    if not npc.supported(solver):
+        raise ValueError(f"{cfg.pipeline} on CUDA: {npc.unsupported_reason(solver)}")
+
+
+def _batched_traj_for(solver: ProjectionSolver, device: torch.device):
+    """The CUDA stepper on a CUDA device (it raises for a config it does not
+    handle), the plain batched trajectory elsewhere."""
+    if torch.device(device).type == "cuda":
+        from pregen_pde_tpu_torch.solvers import ns_projection_cuda as npc
+
+        return npc.build_batched_traj(solver)
+    return solver.make_batched_trajectory_fn()
+
+
+def plan_sub_buckets(u_max: np.ndarray, end_t: np.ndarray,
+                     cfg: MaskedNSConfig) -> list[tuple[np.ndarray, float, float]]:
+    """(indices, horizon, dt) of every sub-bucket, in launch order: one
+    bucket per horizon, split by the power-of-two level k = ceil(log2(cfg.dt /
+    dt_i)) of each trajectory's own CFL dt; a sub-bucket runs at the smallest
+    dt of its members, so a fast inlet taxes only its own sub-bucket."""
+    plan = []
+    for horizon in np.unique(end_t):
+        idx_h = np.nonzero(end_t == horizon)[0]
+        dt_i = np.array([cfl_dt(cfg, float(u)) for u in u_max[idx_h]])
+        lvl = np.ceil(np.log2(cfg.dt / dt_i)).clip(min=0).astype(int)
+        for k in np.unique(lvl):
+            sub = lvl == k
+            plan.append((idx_h[sub], float(horizon), float(dt_i[sub].min())))
+    return plan
+
+
+def draw_masked_inputs(generator: torch.Generator, cfg: MaskedNSConfig,
+                       n: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(z_re (n,) float64, masks (n, res, res) float32) on the generator's
+    device."""
+    n = n or cfg.batch_size
+    z_re = torch.randn((n,), generator=generator, dtype=torch.float64,
+                       device=generator.device)
+    return z_re, sample_masks(generator, cfg, n)
+
+
+def new_stats() -> dict:
+    """Counters ``generate_masked_ns_batch`` adds to: sub-bucket launches,
+    retry launches and the trajectories retried."""
+    return {"sub_buckets": 0, "retries": 0, "retried_trajectories": 0}
+
+
+def generate_masked_ns_batch_from_inputs(z_re: torch.Tensor, masks: torch.Tensor,
+                                         cfg: MaskedNSConfig,
+                                         storage_dtype: str = "float32",
+                                         stats: dict | None = None) -> np.ndarray:
+    """One batch from pre-drawn inputs, computed on ``masks.device``; →
+    (N, n_snapshots+1, res, res, 6) in ``storage_dtype`` on the host."""
+    if not cfg.per_traj_dt:
+        raise NotImplementedError(
+            "per_traj_dt=False (the legacy one-dt-per-bucket rule) is not ported")
+    stats = new_stats() if stats is None else stats
+    dev = masks.device
+    n_traj = masks.shape[0]
+    re = schedules.sample_reynolds(z=z_re.to(torch.float64), mean=cfg.re_mean,
+                                   std=cfg.re_std)
+    re_np = re.cpu().numpy()
+    u_max_np = re_np * cfg.viscosity / cfg.length  # Umax = Re·ν/L
+    end_t_np = schedules.end_time_from_re(re).cpu().numpy() * cfg.time_scale
+    re_norm_np = schedules.normalize_re(re).cpu().numpy()
+
+    masks = masks.to(torch.float32)
+    masks_np = masks.cpu().numpy()
+    sdfs_np = sdf_from_mask(masks).cpu().numpy()
+
+    res = cfg.resolution
+    out = np.empty((n_traj, cfg.n_snapshots + 1, res, res, 6), np.dtype(storage_dtype))
+    # t_end is pinned: traj always gets explicit inner steps and dt
+    solver = _solver_for(cfg, 1.0, 1.0)
+    traj = _batched_traj_for(solver, dev)
+    store = getattr(torch, np.dtype(storage_dtype).name)
+
+    def _run(idx_raw: np.ndarray, horizon: float, dt_b: float) -> np.ndarray:
+        # pad to the next power of two by repeating the first index
+        n_real = len(idx_raw)
+        size = 1 << (n_real - 1).bit_length()
+        idx = np.concatenate([idx_raw, np.full(size - n_real, idx_raw[0])])
+        total_steps = int(round(float(horizon) / dt_b))
+        inner = max(total_steps // cfg.n_snapshots, 1)
+        sel = torch.as_tensor(idx, device=dev)
+        frames = traj(masks[sel],
+                      torch.as_tensor(u_max_np[idx], dtype=torch.float32, device=dev),
+                      inner, dt_b)
+        if frames.dtype != store:
+            frames = frames.to(store)  # cast on the device before the fetch
+        return frames.cpu().numpy()[:n_real]
+
+    def _run_bucket(idx_raw: np.ndarray, horizon: float, dt_b: float) -> None:
+        frames = _run(idx_raw, horizon, dt_b)
+        stats["sub_buckets"] += 1
+        # trajectories that go non-finite (severe constrictions) re-run at
+        # dt/2 through the same build, only the bad rows, so the count stays
+        for attempt in range(cfg.nonfinite_retries):
+            finite = np.isfinite(frames).all(axis=tuple(range(1, frames.ndim)))
+            if finite.all():
+                break
+            bad = idx_raw[~finite]
+            dt_b /= 2.0
+            logging.getLogger("pregen_pde_tpu_torch.datagen").warning(
+                "masked_ns horizon %s: %d/%d non-finite, retrying at dt=%g "
+                "(attempt %d)", horizon, len(bad), len(idx_raw), dt_b, attempt + 1)
+            frames[~finite] = _run(bad, horizon, dt_b)
+            stats["retries"] += 1
+            stats["retried_trajectories"] += len(bad)
+        out[idx_raw, :, :, :, 0:3] = frames
+        out[idx_raw, :, :, :, 3] = re_norm_np[idx_raw, None, None, None]
+        out[idx_raw, :, :, :, 4] = masks_np[idx_raw, None, :, :]
+        out[idx_raw, :, :, :, 5] = sdfs_np[idx_raw, None, :, :]
+
+    for idx, horizon, dt_b in plan_sub_buckets(u_max_np, end_t_np, cfg):
+        _run_bucket(idx, horizon, dt_b)
+    return out
+
+
+def generate_masked_ns_batch(generator: torch.Generator, cfg: MaskedNSConfig,
+                             n_traj: int | None = None, storage_dtype: str = "float32",
+                             stats: dict | None = None) -> np.ndarray:
+    """Draw one batch's inputs from ``generator`` and generate it on the
+    generator's device."""
+    z_re, masks = draw_masked_inputs(generator, cfg, n_traj)
+    return generate_masked_ns_batch_from_inputs(z_re, masks, cfg, storage_dtype, stats)

@@ -1,0 +1,100 @@
+"""Physical validation of the masked-geometry projection solver (port of
+``solvers/validation.py``): the lid-driven cavity against the Ghia–Ghia–Shin
+(1982) centreline tables at Re 100 and 400.
+
+``run_cavity`` integrates to steady state as one batched trajectory with one
+snapshot per 1000 steps and applies the JAX package's steady test (max |Δu|
+between consecutive 1000-step chunks < ``steady_tol``) to the snapshots: the
+result is the first snapshot that passes it, or the last. On a CUDA device
+it runs through the hand-written CUDA stepper, elsewhere through the plain
+version. ``run_cylinder`` and ``convergence_order`` are not ported yet
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pregen_pde_tpu_torch.solvers.ns_projection import ProjectionConfig, ProjectionSolver
+
+# Ghia, Ghia & Shin, J. Comput. Phys. 48 (1982), tables I & II: u along the
+# vertical centreline (x=0.5) at stations GHIA_Y, v along the horizontal
+# centreline (y=0.5) at stations GHIA_X; lid speed 1, cavity side 1.
+GHIA_Y = np.array([0.0000, 0.0547, 0.0625, 0.0703, 0.1016, 0.1719, 0.2813,
+                   0.4531, 0.5000, 0.6172, 0.7344, 0.8516, 0.9531, 0.9609,
+                   0.9688, 0.9766, 1.0000])
+GHIA_U = {
+    100: np.array([0.0, -0.03717, -0.04192, -0.04775, -0.06434, -0.10150,
+                   -0.15662, -0.21090, -0.20581, -0.13641, 0.00332, 0.23151,
+                   0.68717, 0.73722, 0.78871, 0.84123, 1.0]),
+    400: np.array([0.0, -0.08186, -0.09266, -0.10338, -0.14612, -0.24299,
+                   -0.32726, -0.17119, -0.11477, 0.02135, 0.16256, 0.29093,
+                   0.55892, 0.61756, 0.68439, 0.75837, 1.0]),
+}
+GHIA_X = np.array([0.0000, 0.0625, 0.0703, 0.0781, 0.0938, 0.1563, 0.2266,
+                   0.2344, 0.5000, 0.8047, 0.8594, 0.9063, 0.9453, 0.9531,
+                   0.9609, 0.9688, 1.0000])
+GHIA_V = {
+    100: np.array([0.0, 0.09233, 0.10091, 0.10890, 0.12317, 0.16077, 0.17507,
+                   0.17527, 0.05454, -0.24533, -0.22445, -0.16914, -0.10313,
+                   -0.08864, -0.07391, -0.05906, 0.0]),
+    400: np.array([0.0, 0.18360, 0.19713, 0.20920, 0.22965, 0.28124, 0.30203,
+                   0.30174, 0.05186, -0.38598, -0.44993, -0.33827, -0.22847,
+                   -0.19254, -0.15663, -0.12146, 0.0]),
+}
+CHUNK = 1000  # steps between steady-state checks
+
+
+def _cavity_solver(re: float, n: int, advection: str) -> tuple:
+    nu = 1.0 / re
+    cfg = ProjectionConfig(resolution=n, length=1.0, viscosity=nu, domain="cavity",
+                           u_max=1.0, pressure_solver="direct", advection=advection)
+    dx = 1.0 / n
+    dt = min(0.4 * dx / 2.0, 0.2 * dx * dx / nu)
+    return ProjectionSolver(cfg), dx, dt
+
+
+def run_cavity(re: float, n: int = 128, advection: str = "muscl",
+               t_end: float | None = None, steady_tol: float = 1e-6,
+               device: str | torch.device = "cpu") -> dict:
+    """Integrate the lid-driven cavity to steady state on ``device`` → the
+    centreline profiles at the Ghia stations and their deviations."""
+    sol, _, dt = _cavity_solver(re, n, advection)
+    t_end = t_end or (30.0 if re <= 100 else 50.0)
+    chunks = max(int(t_end / dt) // CHUNK, 1)
+    sol = ProjectionSolver(dataclasses.replace(sol.cfg, n_snapshots=chunks))
+    device = torch.device(device)
+    if device.type == "cuda":
+        from pregen_pde_tpu_torch.solvers import ns_projection_cuda as npc
+
+        traj = npc.build_batched_traj(sol)
+    else:
+        traj = sol.make_batched_trajectory_fn()
+    mask = torch.zeros((1, n, n), dtype=torch.float32, device=device)
+    frames = traj(mask, torch.ones((1,), device=device), CHUNK, dt)[0]
+    u_all = frames[..., 0].cpu().numpy()
+    used = chunks
+    for s in range(1, chunks + 1):
+        if float(np.abs(u_all[s] - u_all[s - 1]).max()) < steady_tol:
+            used = s
+            break
+    u = u_all[used]
+    v = frames[used, ..., 1].cpu().numpy()
+    yc = (np.arange(n) + 0.5) / n
+    u_c = 0.5 * (u[:, n // 2 - 1] + u[:, n // 2])
+    v_c = 0.5 * (v[n // 2 - 1, :] + v[n // 2, :])
+    u_i = np.interp(GHIA_Y, np.r_[0, yc, 1], np.r_[0, u_c, 1.0])
+    v_i = np.interp(GHIA_X, np.r_[0, yc, 1], np.r_[0, v_c, 0.0])
+    gu, gv = GHIA_U[int(re)], GHIA_V[int(re)]
+    return {
+        "Re": re, "n": n, "advection": advection, "steps": used * CHUNK, "dt": dt,
+        "u_model": u_i, "v_model": v_i, "u_ghia": gu, "v_ghia": gv,
+        "max_abs_dev_u": float(np.max(np.abs(u_i - gu))),
+        "max_abs_dev_v": float(np.max(np.abs(v_i - gv))),
+        "u_min_model": float(u_c.min()), "u_min_ghia": float(gu.min()),
+        "v_min_model": float(v_c.min()), "v_min_ghia": float(gv.min()),
+        "v_max_model": float(v_c.max()), "v_max_ghia": float(gv.max()),
+    }

@@ -12,7 +12,10 @@ import pytest
 import torch
 
 from pregen_pde_tpu_torch.core import NSVorticityConfig
+from pregen_pde_tpu_torch.datagen.masked_ns import MaskedNSConfig, sample_masks
+from pregen_pde_tpu_torch.solvers import ns_projection_cuda as npc
 from pregen_pde_tpu_torch.solvers import spectral_ns_cuda as snc
+from pregen_pde_tpu_torch.solvers.ns_projection import ProjectionConfig, ProjectionSolver
 from pregen_pde_tpu_torch.solvers.spectral_ns import NSVorticitySolver
 from pregen_pde_tpu_torch.utils.parity import per_snapshot_rel_l2, rel_l2, to_torch
 
@@ -58,3 +61,39 @@ def test_k1_kernel_matches_plain(output):
     assert got.shape == ref.shape
     # f32 roundoff over a few steps (~3e-7 measured on an H100)
     assert per_snapshot_rel_l2(got, ref).max() < 2e-6
+
+
+# K2 against its plain float32 version, per snapshot: chip_smoke.py phase
+# 8's bar, 30x the worst difference measured when both are right (2.3e-6)
+K2_VS_PLAIN_BAR = 7e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32, 96, 128, 256])
+@pytest.mark.parametrize("domain", ["channel", "cavity"])
+def test_k2_kernel_matches_plain(n, domain):
+    _need_cuda()
+    B = 4
+    sol = ProjectionSolver(ProjectionConfig(resolution=n, domain=domain, n_snapshots=3))
+    pipeline = "fpo_multi_hole" if domain == "channel" else "ldc_regular"
+    masks = sample_masks(torch.Generator(device="cuda").manual_seed(n),
+                         MaskedNSConfig(pipeline=pipeline, resolution=n), B)
+    u_max = torch.linspace(100, 10000, B, device="cuda") * 1.5e-5 / 2.0
+    dt = 0.5 * (2.0 / n) / (3.5 * float(u_max.max()))  # the batch's smallest CFL dt
+    got = npc.build_batched_traj(sol)(masks, u_max, 10, dt)
+    ref = sol.make_batched_trajectory_fn()(masks, u_max, 10, dt)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (B, 4, n, n, 3)
+    assert torch.isfinite(got).all()
+    assert per_snapshot_rel_l2(got, ref).max() <= K2_VS_PLAIN_BAR
+
+
+@pytest.mark.cuda
+def test_k2_launch_count():
+    _need_cuda()
+    sol = ProjectionSolver(ProjectionConfig(resolution=128, n_snapshots=2))
+    npc.reset_launches()
+    npc.build_batched_traj(sol)(torch.zeros((2, 128, 128), device="cuda"), None, 3, 0.01)
+    torch.cuda.synchronize()
+    # init + frame 0, then per snapshot 3 steps × 7 launches + the frame
+    assert npc.launches == 2 + 2 * (3 * 7 + 1)

@@ -1,0 +1,149 @@
+"""Port parity: the masked-geometry generators as a whole (JAX's own draws
+through the port against ``generate_masked_ns_batch``), their sub-bucket and
+retry logic, the device guard and the CLI."""
+
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from pregen_pde_tpu.datagen import masked_ns as jm
+from pregen_pde_tpu_torch.datagen import masked_ns as tm
+from pregen_pde_tpu_torch.datagen.writer import load_shards
+from pregen_pde_tpu_torch.solvers import schedules as tsched
+from pregen_pde_tpu_torch.utils.parity import rel_l2, to_numpy, to_torch
+
+# the setup of tests/test_masked_ns_datagen.py: 32², 3 snapshots, horizons
+# 1100..2700 s × 2e-4 → 4..10 steps per snapshot
+FAST = dict(resolution=32, dt=0.05, n_snapshots=3, time_scale=2e-4, cg_iters=60)
+
+
+def _jax_draws(key, cfg, n):
+    """The draws `generate_masked_ns_batch` makes (`masked_ns.py:169-177`)."""
+    k_re, k_geo = jax.random.split(key)
+    z = np.asarray(jax.random.normal(k_re, (n,)))
+    return z, np.asarray(jm.sample_masks(k_geo, cfg, n))
+
+
+@pytest.mark.parametrize("pipeline", ["fpo_regular", "fpo_multi_hole", "ldc_regular"])
+def test_slice_matches_jax_on_jax_draws(pipeline):
+    jcfg = jm.MaskedNSConfig(pipeline=pipeline, **FAST)
+    key = jax.random.key(11)
+    ref = jm.generate_masked_ns_batch(key, jcfg, 4)
+    z, masks = _jax_draws(key, jcfg, 4)
+    stats = tm.new_stats()
+    got = tm.generate_masked_ns_batch_from_inputs(
+        to_torch(z), to_torch(masks), tm.MaskedNSConfig(pipeline=pipeline, **FAST),
+        stats=stats)
+    assert got.shape == ref.shape == (4, 4, 32, 32, 6) and got.dtype == ref.dtype
+    assert np.isfinite(got).all() and stats["sub_buckets"] >= 1 and stats["retries"] == 0
+    assert rel_l2(got[..., :3], ref[..., :3]) <= 1e-4
+    np.testing.assert_allclose(got[..., 3:], ref[..., 3:], rtol=0, atol=1e-6)
+
+
+def test_cfl_dt_masks_and_guards():
+    for u in (1e-4, 0.0375, 0.075, 3.0):
+        assert tm.cfl_dt(tm.MaskedNSConfig(), u) == jm.cfl_dt(jm.MaskedNSConfig(), u)
+    g = torch.Generator().manual_seed(0)
+    key = jax.random.key(0)
+    reg = tm.sample_masks(g, tm.MaskedNSConfig(pipeline="fpo_regular", resolution=64), 3)
+    np.testing.assert_array_equal(
+        to_numpy(reg), np.asarray(jm.sample_masks(key, jm.MaskedNSConfig(
+            pipeline="fpo_regular", resolution=64), 3)))
+    hole = to_numpy(tm.sample_masks(g, tm.MaskedNSConfig(pipeline="fpo_hole",
+                                                          resolution=64), 3))
+    assert hole.shape == (3, 64, 64) and not np.array_equal(hole[0], hole[1])
+    multi = tm.sample_masks(g, tm.MaskedNSConfig(pipeline="fpo_multi_hole",
+                                                 resolution=64, hole_overlap=True), 2)
+    assert float(multi[:, 32, 32].min()) == 1.0
+    assert float(tm.sample_masks(g, tm.MaskedNSConfig(pipeline="ldc_regular",
+                                                      resolution=64), 2).abs().max()) == 0
+    with pytest.raises(NotImplementedError):
+        tm.generate_masked_ns_batch(g, tm.MaskedNSConfig(per_traj_dt=False, **FAST), 1)
+    # on CUDA a grid the kernel does not handle raises, naming the size
+    tm.check_device_supported(tm.MaskedNSConfig(resolution=128), torch.device("cuda"))
+    tm.check_device_supported(tm.MaskedNSConfig(resolution=48), torch.device("cpu"))
+    with pytest.raises(ValueError, match="n = 48"):
+        tm.check_device_supported(tm.MaskedNSConfig(resolution=48), torch.device("cuda"))
+
+
+def _fake_traj_factory(calls, poison_first=False):
+    def factory(solver, device):
+        def traj(masks, u_max, inner, dt):
+            calls.append((to_numpy(u_max).copy(), float(dt), int(inner)))
+            out = torch.ones((masks.shape[0], solver.cfg.n_snapshots + 1,
+                              masks.shape[1], masks.shape[2], 3))
+            if poison_first and len(calls) == 1:
+                out[0] = float("nan")
+            return out
+
+        return traj
+
+    return factory
+
+
+def test_per_trajectory_cfl_dt_subbuckets(monkeypatch):
+    """Port of test_masked_ns_datagen.py's sub-bucket test: trajectories of
+    one horizon bucket whose CFL dt differ by a power-of-two level run as
+    separate sub-buckets at their own dt."""
+    calls = []
+    monkeypatch.setattr(tm, "_batched_traj_for", _fake_traj_factory(calls))
+    re_vals = np.array([2000.0, 20000.0, 20000.0, 2000.0])
+    monkeypatch.setattr(tsched, "sample_reynolds",
+                        lambda z, mean, std: torch.as_tensor(re_vals))
+    monkeypatch.setattr(tsched, "end_time_from_re",
+                        lambda re: torch.full_like(torch.as_tensor(re), 1000.0))
+    cfg = tm.MaskedNSConfig(pipeline="fpo_regular", resolution=16, n_snapshots=2,
+                            time_scale=1e-3)
+    stats = tm.new_stats()
+    out = tm.generate_masked_ns_batch(torch.Generator().manual_seed(0), cfg, 4, stats=stats)
+    assert np.isfinite(out).all()
+    assert len(calls) == 2 == stats["sub_buckets"]  # one launch per dt level
+    u_slow = 2000.0 * cfg.viscosity / cfg.length
+    u_fast = 20000.0 * cfg.viscosity / cfg.length
+    by_dt = sorted(calls, key=lambda c: -c[1])
+    assert by_dt[0][1] == pytest.approx(tm.cfl_dt(cfg, u_slow)) == pytest.approx(cfg.dt)
+    assert by_dt[1][1] == pytest.approx(tm.cfl_dt(cfg, u_fast))
+    assert by_dt[1][1] < cfg.dt
+    np.testing.assert_allclose(by_dt[0][0], u_slow, rtol=1e-6)
+    np.testing.assert_allclose(by_dt[1][0], u_fast, rtol=1e-6)
+    assert by_dt[0][2] < by_dt[1][2]
+
+
+def test_nonfinite_bucket_retry(monkeypatch):
+    """Port of test_masked_ns_datagen.py's retry test: a non-finite row
+    re-runs alone at dt/2, so the count stays exact."""
+    calls = []
+    monkeypatch.setattr(tm, "_batched_traj_for", _fake_traj_factory(calls, True))
+    cfg = tm.MaskedNSConfig(pipeline="fpo_regular", resolution=16, n_snapshots=2,
+                            time_scale=1e-4, re_std=0.0)  # one horizon bucket
+    stats = tm.new_stats()
+    out = tm.generate_masked_ns_batch(torch.Generator().manual_seed(0), cfg, 4, stats=stats)
+    assert np.isfinite(out).all()
+    assert len(calls) == 2 and stats == {"sub_buckets": 1, "retries": 1,
+                                         "retried_trajectories": 1}
+    assert calls[1][1] == pytest.approx(calls[0][1] / 2.0)
+    assert len(calls[1][0]) == 1  # only the bad row re-runs
+
+
+def test_cli_masked_generate_writes_readable_shards(tmp_path, capsys):
+    from pregen_pde_tpu_torch.__main__ import main
+
+    out = tmp_path / "fpo"
+    base = ["generate", "--workload", "fpo_hole", "--resolution", "32", "--batch-size", "2",
+            "--time-scale", "2e-4", "--device", "cpu", "--out", str(out)]
+    main(base + ["--n", "3"])
+    data = load_shards(out)
+    assert data.shape == (3, 21, 32, 32, 6) and np.isfinite(data).all()
+    assert (data[..., 4].sum(axis=(2, 3)) == 256).all()  # one 16² hole, every frame
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert lines[0] == {"kernel_launches": {"spectral_ns_step": 0, "ns_projection_step": 0}}
+    assert lines[1]["masked_ns"]["sub_buckets"] >= 2 and lines[1]["masked_ns"]["retries"] == 0
+    main(base + ["--n", "5", "--resume"])
+    assert load_shards(out).shape == (5, 21, 32, 32, 6)
+    np.testing.assert_array_equal(load_shards(out)[:3], data)
+    with pytest.raises(SystemExit):
+        main(["generate", "--workload", "ldc_regular", "--method", "cn_ab2_packed",
+              "--device", "cpu", "--out", str(tmp_path / "x")])

@@ -150,6 +150,8 @@ def test_port_imports_no_jax_or_triton():
         "import pregen_pde_tpu_torch, pregen_pde_tpu_torch.__main__\n"
         "import pregen_pde_tpu_torch.datagen.pipeline, pregen_pde_tpu_torch.datagen.writer\n"
         "import pregen_pde_tpu_torch.solvers.spectral_ns_cuda\n"
+        "import pregen_pde_tpu_torch.datagen.masked_ns, pregen_pde_tpu_torch.solvers.validation\n"
+        "import pregen_pde_tpu_torch.solvers.ns_projection_cuda, pregen_pde_tpu_torch.profile_k2\n"
         "import pregen_pde_tpu_torch.utils.parity, pregen_pde_tpu_torch.utils.device\n"
         "bad = [m for m in ('jax', 'triton') if m in sys.modules]\n"
         "assert not bad, bad\n"
