@@ -53,11 +53,42 @@ Phases (any failure exits nonzero; no phase catches a failure):
     than the shedding flow keeps float32 roundoff small (NVIDIA H100: K2 vs
     plain 3.1e-5 at B=1 and 8.3e-4 at B=32).
 
+12. K3 (the Swin-V2 block) and K4 (window attention) are built in phase 2
+    beside K1 and K2; their build seconds are printed here;
+13. K4 against its plain version (relative L2 ≤ 1.5e-5) at scOT-B's
+    stage-0 shapes at batch 16 (nb 64, 3 heads, n 256, hd 32; nw 4 with the
+    real shift mask, and nw 1) and stage-3 shapes (nb 16, 24 heads, n 16),
+    and at the evaluate main path's stage 3 (batch 3); K4, the plain
+    version and ``scaled_dot_product_attention`` (scale 1, float mask) timed;
+14. K3 against its plain version (relative L2 ≤ 2e-5) at stages 0 (nw 4
+    and 1), 1 and 2 at batch 16, (16, 32², 96), (16, 16², 192), (16, 8²,
+    384), and stages 0–2 at the main path's batch 3; K3 and plain timed;
+15. the whole scOT-B forward at 128², batch 16, one seeded weight set, in
+    three routes: auto (K3 at the 48 layers of C ≤ 384, K4 in the 16 of
+    stage 3), attention-only (K4 at all 64) and plain; each kernel route
+    against plain (relative L2 ≤ 2.5e-5), the launches of one forward exactly
+    (auto 336 K3 kernels = 48 × 7 and 16 K4; attention-only 64 K4), each
+    route timed;
+16. the scOT main path: ``evaluate --model scot-B`` in a subprocess on
+    phase 10's ``fpo_multi_hole`` shard with that seeded weight set as a
+    ``.pt`` (written to a temp dir, deleted after): finite errors for the 3
+    default patterns and the 7 accumulation steps, the exact K3 and K4
+    launches of its 19 forwards, and agreement with an in-process
+    evaluation of the same data through the plain route (reported errors
+    within relative 1e-4).
+
 The 1e-5 bar of K1 against the plain float32 version is about 30× what the
 two differ by when both are right (2.4e-7 vorticity, 3.6e-7 fields at the
 north star, NVIDIA H100): a kernel error of its own of 1e-5 fails it. The
 7e-5 bar of K2 is about 30× its worst case when both are right (2.3e-6 at
 phase 8 (a), growing over the snapshots; NVIDIA H100).
+
+K3's, K4's and the whole model's bars are about 30× what each differs from
+its plain version by when both are right (7.0e-7, 4.8e-7 and 8.4e-7 worst,
+NVIDIA H100); the evaluate bar leaves ~100× over 9.3e-7 for the 7-step
+rollouts. Each kernel's ``bound_ms`` is the larger of its bytes (inputs read
+once, outputs written once) over 3.35 TB/s and its float32 operations over
+67 TFLOP/s, computed from the shapes of the call that is timed.
 
 Prints a kernels JSON line and the card line, then, as its last line,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -81,6 +112,12 @@ K1_ABS_BAR = 2.6e-4
 K1_VS_PLAIN_BAR = 1e-5
 K2_VS_PLAIN_BAR = 7e-5
 GHIA_BARS = {100: (0.05, 0.03), 400: (0.07, 0.06)}
+K4_VS_PLAIN_BAR = 1.5e-5
+K3_VS_PLAIN_BAR = 2e-5
+SCOT_VS_PLAIN_BAR = 2.5e-5
+EVAL_VS_PLAIN_RTOL = 1e-4
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 
 
 def fail(msg: str) -> None:
@@ -100,6 +137,12 @@ def card_line() -> str:
     if r.returncode != 0 or not r.stdout.strip():
         fail(f"nvidia-smi failed: rc {r.returncode} {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def timed(fn, reps: int = 1):
@@ -148,8 +191,12 @@ def main() -> None:
 
     # -- 2. build: one nvcc per source, all started together ---------------------
     t0_build = t0 = time.perf_counter()
-    pool = ThreadPoolExecutor(max_workers=2)
-    builds = {name: pool.submit(build.build, name) for name in (snc.LIB_NAME, npc.LIB_NAME)}
+    from pregen_pde_tpu_torch.ops import swin_block as sb
+    from pregen_pde_tpu_torch.ops import window_attention as wa
+
+    names = (snc.LIB_NAME, npc.LIB_NAME, sb.LIB_NAME, wa.LIB_NAME)
+    pool = ThreadPoolExecutor(max_workers=len(names))
+    builds = {name: pool.submit(build.build, name) for name in names}
     builds[snc.LIB_NAME].result()
     build.load(snc.LIB_NAME)
     say(f"[2] built {snc.LIB_NAME} (sm_90a) in {time.perf_counter() - t0:.2f} s "
@@ -235,13 +282,11 @@ def main() -> None:
     snc.reset_launches()
     work = tempfile.mkdtemp(prefix="smoke_", dir=build.BUILD_DIR)
     try:
-        env = dict(os.environ, PREGEN_PDE_TPU_CACHE=os.path.join(work, "native"))
         cmd = [sys.executable, "-m", "pregen_pde_tpu_torch", "generate",
                "--workload", "ns_spectral", "--n", "32", "--resolution", "256",
                "--batch-size", "32", "--out", os.path.join(work, "ns")]
         t0 = time.perf_counter()
-        r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
-                           timeout=900)
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
         gen_s = time.perf_counter() - t0
         if r.returncode != 0:
             fail(f"generate rc {r.returncode}:\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
@@ -290,6 +335,12 @@ def main() -> None:
             f"({times[output, 'plain'] * 1e3:.1f} ms) | K1 vs plain f32 max "
             f"per-snapshot rel L2 {err.max():.3e} | {card}")
     max_abs = float((outs["fields", "k1"] - outs["fields", "plain"]).abs().max())
+    # K1's work: per image-step two packed inverse and one forward complex
+    # FFT of n² points (5 n² log2 n² FLOP each; the pointwise algebra is not
+    # counted); bytes: w0 and ν in, the (B, 51, n, n, 3) fields out
+    n = sol.grid.n
+    k1_bound = bound(w0.numel() * 4 + outs["fields", "k1"].numel() * 4,
+                     32 * 2500 * 3 * 5 * n * n * np.log2(n * n))
     k1_line = {
         "name": snc.LIB_NAME,
         "route": "cuda",
@@ -299,10 +350,14 @@ def main() -> None:
         "max_abs_err": max_abs,
         "ms": times["fields", "k1"] * 1e3,
         "plain_ms": times["fields", "plain"] * 1e3,
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
     }
-    k2_line = k2_phases(dev, card, builds[npc.LIB_NAME], t0_build)
+    k2_line, fpo = k2_phases(dev, card, builds[npc.LIB_NAME], t0_build)
+    k3_line, k4_line = scot_phases(dev, card, builds, t0_build, fpo)
     pool.shutdown()
-    say(json.dumps({"kernels": [k1_line, k2_line]}))
+    say(json.dumps({"kernels": [k1_line, k2_line, k3_line, k4_line]}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
@@ -411,17 +466,16 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
     snc.reset_launches()
     npc.reset_launches()
     k2_launches = 0
+    fpo = None  # the fpo_multi_hole shard, evaluated by phase 16
     work = tempfile.mkdtemp(prefix="smoke_masked_", dir=build.BUILD_DIR)
     try:
-        env = dict(os.environ, PREGEN_PDE_TPU_CACHE=os.path.join(work, "native"))
         for workload, n_traj in (("fpo_multi_hole", 32), ("ldc_regular", 8)):
             out = os.path.join(work, workload)
             cmd = [sys.executable, "-m", "pregen_pde_tpu_torch", "generate", "--workload",
                    workload, "--n", str(n_traj), "--resolution", "128", "--batch-size",
                    str(n_traj), "--time-scale", "1.0", "--out", out]
             t0 = time.perf_counter()
-            r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
-                               timeout=600)
+            r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
             wall = time.perf_counter() - t0
             if r.returncode != 0:
                 fail(f"generate {workload} rc {r.returncode}:\n{r.stdout[-2000:]}\n"
@@ -437,6 +491,8 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
             k2_launches += count[0]
             data = load_shards(out)
             check_masked_shard(data, workload, n_traj, parabolic_inlet, schedules)
+            if workload == "fpo_multi_hole":
+                fpo = data
             say(f"[10] generate --workload {workload} --n {n_traj} --resolution 128 "
                 f"--batch-size {n_traj} --time-scale 1.0: {wall:.2f} s wall incl. start-up "
                 f"and build, {n_traj / wall:.3f} traj/s; {stats[0]['sub_buckets']} "
@@ -472,6 +528,11 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
             f"K2 vs K2 with u_max + 1 ulp {per_snapshot_rel_l2(out_k2, nudged)[1]:.3e} "
             f"(information) | {card}")
     t_k2, t_p = res[32]
+    # K2's work at B = 32: four (n x n)(n x n) products per image-step
+    # (8 n³ FLOP; the stencils are not counted); bytes: masks and u_max in,
+    # the (B, 2, n, n, 3) frames out
+    k2_bound = bound(32 * 128 * 128 * 4 + 32 * 4 + 32 * 2 * 128 * 128 * 3 * 4,
+                     32 * steps * 8 * 128**3)
     return {
         "name": npc.LIB_NAME,
         "route": "cuda",
@@ -481,7 +542,212 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
         "max_abs_err": max_abs,
         "ms": t_k2 * 1e3,
         "plain_ms": t_p * 1e3,
-    }
+        "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1],
+        "library_ms": None,
+    }, fpo
+
+
+def scot_phases(dev, card: str, builds: dict, t0_build: float, fpo) -> tuple[dict, dict]:
+    """Phases 12-16: K3, K4 and the scOT evaluate main path. → K3's and
+    K4's entries of the kernels line (at the main path's shapes)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from pregen_pde_tpu_torch.__main__ import _evaluate_ckpt
+    from pregen_pde_tpu_torch.kernels import build
+    from pregen_pde_tpu_torch.models.scot import shift_attn_mask
+    from pregen_pde_tpu_torch.ops import swin_block as sb
+    from pregen_pde_tpu_torch.ops import window_attention as wa
+    from pregen_pde_tpu_torch.profile_scot import ROUTES, event_ms, seeded_scot, set_route
+    from pregen_pde_tpu_torch.utils.parity import rel_l2
+
+    # -- 12. K3's and K4's builds (started in phase 2) -------------------------------------
+    for name in (sb.LIB_NAME, wa.LIB_NAME):
+        builds[name].result()
+        build.load(name)
+        say(f"[12] built {name} (sm_90a): done {time.perf_counter() - t0_build:.2f} s after "
+            f"the parallel builds started (nvcc {build.build_seconds[name]:.2f} s)")
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    mask0 = torch.from_numpy(shift_attn_mask(32, 32, 16, 8)).to(dev)  # stage 0: nw = 4
+
+    def bias_of(h, n, nw):
+        b = 16.0 * torch.sigmoid(rn(1, h, n, n))
+        return b + mask0[:, None] if nw > 1 else b
+
+    # -- 13. K4 against its plain version; SDPA as the library yardstick ------------------------
+    k4_line = None
+    for label, nb, h, n, hd, nw in (("stage 0 shifted, B=16", 64, 3, 256, 32, 4),
+                                    ("stage 0, B=16", 64, 3, 256, 32, 1),
+                                    ("stage 3, B=16", 16, 24, 16, 32, 1),
+                                    ("stage 3, B=3 (main path)", 3, 24, 16, 32, 1)):
+        q = F.normalize(rn(nb, h, n, hd), dim=-1) * 10.0  # the logit scale folded in
+        k = F.normalize(rn(nb, h, n, hd), dim=-1)
+        v = rn(nb, h, n, hd)
+        bias = bias_of(h, n, nw)
+        with torch.inference_mode():
+            got = wa.window_attention(q, k, v, bias)
+            ref = wa.window_attention_plain(q, k, v, bias)
+            err = rel_l2(got, ref)
+            if not (torch.isfinite(got).all() and err <= K4_VS_PLAIN_BAR):
+                fail(f"K4 vs plain ({label}): rel L2 {err:.3e} > {K4_VS_PLAIN_BAR:.1e}")
+            qv, kv, vv = (t.view(nb // nw, nw, h, n, hd) for t in (q, k, v))
+            lib = F.scaled_dot_product_attention(qv, kv, vv, attn_mask=bias, scale=1.0)
+            lib_err = rel_l2(lib.reshape(nb, h, n, hd), ref)
+            reps = 50 if n == 256 else 200
+            t_k = event_ms(lambda: wa.window_attention(q, k, v, bias), reps)
+            t_p = event_ms(lambda: wa.window_attention_plain(q, k, v, bias), reps)
+            t_l = event_ms(lambda: F.scaled_dot_product_attention(qv, kv, vv, attn_mask=bias,
+                                                                  scale=1.0), reps)
+        b_ms, b_by = bound(4 * (4 * q.numel() + bias.numel()), 4.0 * nb * h * n * n * hd)
+        say(f"[13] K4 {label} (nb {nb}, h {h}, n {n}, hd {hd}, nw {nw}): rel L2 vs plain "
+            f"{err:.3e} (bar {K4_VS_PLAIN_BAR:.1e}), SDPA vs plain {lib_err:.3e}; K4 {t_k:.4f} ms "
+            f"| plain {t_p:.4f} ms | SDPA {t_l:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | {card}")
+        if label.endswith("(main path)"):
+            k4_line = {"name": wa.LIB_NAME, "route": "cuda",
+                       "source": "pregen_pde_tpu_torch/csrc/window_attention.cu",
+                       "replaces": "pregen_pde_tpu/ops/window_attention.py:136",
+                       "max_abs_err": float((got - ref).abs().max()), "ms": t_k,
+                       "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l}
+
+    # -- 14. K3 against its plain version ----------------------------------------------------------
+    k3_line = None
+    for label, B, hw, c, heads, ws, nw in (("stage 0 shifted, B=16", 16, 32, 96, 3, 16, 4),
+                                           ("stage 0, B=16", 16, 32, 96, 3, 16, 1),
+                                           ("stage 1, B=16", 16, 16, 192, 6, 16, 1),
+                                           ("stage 2, B=16", 16, 8, 384, 12, 8, 1),
+                                           ("stage 1, B=3", 3, 16, 192, 6, 16, 1),
+                                           ("stage 2, B=3", 3, 8, 384, 12, 8, 1),
+                                           ("stage 0 shifted, B=3 (main path)", 3, 32, 96, 3, 16,
+                                            4)):
+        n, hd, f = ws * ws, c // heads, 4 * c
+        w = lambda *shape: 0.02 * rn(*shape) * (c ** 0.5)
+        args = (rn(B, hw, hw, c), bias_of(heads, n, nw)[:nw], 1.0 + 9.0 * torch.rand(
+                    heads, generator=gen, device=dev),
+                w(heads, c, hd), w(heads, 1, hd), w(heads, c, hd), w(heads, c, hd),
+                w(heads, 1, hd), w(heads, hd, c), w(1, c), 1.0 + w(B, c), w(B, c), w(c, f),
+                w(1, f), w(f, c), w(1, c), 1.0 + w(B, c), w(B, c), torch.ones(B, 2, device=dev))
+        with torch.inference_mode():
+            got = sb.fused_swin_block(*args, heads, ws, 1e-5)
+            ref = sb.swin_block_plain(*args, heads, ws, 1e-5)
+            err = rel_l2(got, ref)
+            if not (torch.isfinite(got).all() and err <= K3_VS_PLAIN_BAR):
+                fail(f"K3 vs plain ({label}): rel L2 {err:.3e} > {K3_VS_PLAIN_BAR:.1e}")
+            t_k = event_ms(lambda: sb.fused_swin_block(*args, heads, ws, 1e-5), 20)
+            t_p = event_ms(lambda: sb.swin_block_plain(*args, heads, ws, 1e-5), 20)
+        M = B * hw * hw
+        # x in, y out, the weights, the bias and the per-sample affines, once
+        nbytes = 4 * (2 * M * c + 4 * c * c + 2 * c * f + 5 * c + f + args[1].numel() + 4 * B * c)
+        flops = 2.0 * M * c * (3 * c + c + 2 * f) + 4.0 * M * n * c
+        b_ms, b_by = bound(nbytes, flops)
+        say(f"[14] K3 {label} ({B}, {hw}², C {c}, {heads} heads, ws {ws}, nw {nw}): rel L2 vs "
+            f"plain {err:.3e} (bar {K3_VS_PLAIN_BAR:.0e}); K3 {t_k:.4f} ms | plain {t_p:.4f} ms "
+            f"| bound {b_ms:.4f} ms ({b_by}) | {card}")
+        if label.endswith("(main path)"):
+            k3_line = {"name": sb.LIB_NAME, "route": "cuda",
+                       "source": "pregen_pde_tpu_torch/csrc/swin_block.cu",
+                       "replaces": "pregen_pde_tpu/ops/swin_block.py:229",
+                       "max_abs_err": float((got - ref).abs().max()), "ms": t_k,
+                       "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    # -- 15. the whole scOT-B forward in three routes ------------------------------------------------
+    model = seeded_scot("scot-B", 128, seed=0)
+    n_params = sum(prm.numel() for prm in model.parameters())
+    work = tempfile.mkdtemp(prefix="smoke_scot_", dir=build.BUILD_DIR)
+    try:
+        ckpt = os.path.join(work, "scot_b_seed0.pt")
+        torch.save(model.state_dict(), ckpt)
+        model = model.to(dev).eval()
+        x = rn(16, 128, 128, 7)
+        t = torch.rand(16, generator=gen, device=dev)
+        # (K3 kernels, K4 launches) of one forward in each route
+        wants = {"auto": (48 * sb.KERNELS_PER_CALL, 16), "attention-only": (0, 64),
+                 "plain": (0, 0)}
+        outs, times = {}, {}
+        for route in ROUTES:
+            set_route(model, route)
+            want = wants[route]
+            with torch.inference_mode():
+                sb.reset_launches()
+                wa.reset_launches()
+                outs[route] = model(x, t)
+                torch.cuda.synchronize()
+                got = (sb.launches, wa.launches)
+                if got != want:
+                    fail(f"scOT-B {route}: one forward launched (K3, K4) = {got}, want {want}")
+                times[route] = event_ms(lambda: model(x, t), 5)
+            if not torch.isfinite(outs[route]).all():
+                fail(f"scOT-B {route}: non-finite output")
+        for route in ("auto", "attention-only"):
+            err = rel_l2(outs[route], outs["plain"])
+            say(f"[15] scOT-B ({n_params / 1e6:.1f} M params) 128², B=16, {route}: rel L2 vs "
+                f"plain {err:.3e} (bar {SCOT_VS_PLAIN_BAR:.1e}); launches of one forward (K3 "
+                f"kernels, K4) {wants[route]}")
+            if not err <= SCOT_VS_PLAIN_BAR:
+                fail(f"scOT-B {route} vs plain: rel L2 {err:.3e} > {SCOT_VS_PLAIN_BAR:.1e}")
+        say("[15] scOT-B 128², B=16, one forward: " + " | ".join(
+            f"{r} {ms:.3f} ms" for r, ms in times.items()) + f" | {card}")
+        del model, outs
+
+        # -- 16. the main path: evaluate through the CLI ------------------------------------------
+        data_path = os.path.join(work, "fpo_multi_hole.npy")
+        np.save(data_path, fpo)
+        cmd = [sys.executable, "-m", "pregen_pde_tpu_torch", "evaluate", "--model", "scot-B",
+               "--data", data_path, "--ckpt", ckpt, "--batch-size", "16"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"evaluate rc {r.returncode}:\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        lines = [json.loads(l) for l in r.stdout.splitlines() if l.startswith("{")]
+        counts = [l["kernel_launches"] for l in lines if "kernel_launches" in l]
+        results = [l for l in lines if "patterns" in l]
+        if len(counts) != 1 or len(results) != 1:
+            fail(f"evaluate printed no launch or result line:\n{r.stdout[-2000:]}")
+        res, counts = results[0], counts[0]
+        # 3 test trajectories in one batch: 1 + 4 + 7 pattern steps + 7 accumulation steps
+        forwards = 19
+        want = {sb.LIB_NAME: forwards * 48 * sb.KERNELS_PER_CALL, wa.LIB_NAME: forwards * 16}
+        if counts != want:
+            fail(f"evaluate launches {counts}, want {want}")
+        values = flat_numbers(res)
+        if (list(res["patterns"]) != ["[7]", "[2, 2, 2, 1]", "[1, 1, 1, 1, 1, 1, 1]"]
+                or len(res["accumulation"]) != 7 or not np.isfinite(values).all()):
+            fail(f"evaluate result malformed or non-finite: {json.dumps(res)[:2000]}")
+        with torch.inference_mode():
+            plain = _evaluate_ckpt(ckpt, "scot-B", fpo, "[7];[2,2,2,1];[1,1,1,1,1,1,1]", 16,
+                                   dev, impl="plain")
+        rel = np.abs(values - flat_numbers(plain)) / np.maximum(np.abs(flat_numbers(plain)),
+                                                                 1e-30)
+        say(f"[16] evaluate --model scot-B on fpo_multi_hole (32 traj, 21 frames, 128²; 3 test "
+            f"trajectories): {wall:.2f} s wall incl. start-up and loading; launches {counts}; "
+            f"[7] median rel {res['patterns']['[7]']['median_rel_%']:.4f} %, accumulation step 7 "
+            f"median {res['accumulation'][6]['median_rel_%']:.4f} %; kernels vs in-process "
+            f"plain route: worst relative difference of the {values.size} reported numbers "
+            f"{rel.max():.3e} (bar {EVAL_VS_PLAIN_RTOL:.0e}) | {card}")
+        if not rel.max() <= EVAL_VS_PLAIN_RTOL:
+            fail(f"evaluate through the kernels vs the plain route: {rel.max():.3e} > "
+                 f"{EVAL_VS_PLAIN_RTOL:.0e}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    k3_line["launches"] = counts[sb.LIB_NAME]
+    k4_line["launches"] = counts[wa.LIB_NAME]
+    return k3_line, k4_line
+
+
+def flat_numbers(res: dict):
+    """Every number of an evaluate result, in a fixed order."""
+    import numpy as np
+
+    out = []
+    for key in sorted(res["patterns"]):
+        out += [v for _, v in sorted(res["patterns"][key].items())]
+    for step in res["accumulation"]:
+        out += [v for _, v in sorted(step.items())]
+    return np.asarray(out, np.float64)
 
 
 def check_masked_shard(data, workload: str, n_traj: int, parabolic_inlet, schedules) -> None:

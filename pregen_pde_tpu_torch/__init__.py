@@ -4,7 +4,8 @@ The JAX package beside it is the reference; each module here mirrors the
 module of the same path there and is held against it by the
 ``tests/test_torch_*.py`` parity tests.
 
-- ``core``     — re-exports the JAX package's numpy-only config and grid.
+- ``core``     — configs and spectral grids (the port's own copy).
+- ``native``   — the C++ shard writer, built with g++ at first use.
 - ``utils``    — device/dtype policy, numpy↔torch parity helpers.
 - ``fields``   — GRF initial conditions; box, disk and hole masks and the
   batched SDF.
@@ -16,10 +17,16 @@ module of the same path there and is held against it by the
 - ``datagen``  — horizon-bucketed batch generation (spectral NS and the
   masked FPO/LDC generators) into the ``(N, T, H, W, 6)`` contract and the
   shard writers.
+- ``ops``      — the CPB bias gather and the wrappers of the hand-written
+  CUDA window attention (K4) and Swin-V2 block (K3) forwards.
+- ``models``   — scOT (``ScOT``) and the flax-checkpoint converter.
+- ``training`` — time-pair datasets and error metrics (numpy).
+- ``evalx``    — AR rollout patterns and the accumulation error.
 
-Entry point: ``python -m pregen_pde_tpu_torch generate --workload
-{ns_spectral,fpo_regular,fpo_hole,fpo_multi_hole,ldc_regular}``. The
-package never imports ``jax``.
+Entry points: ``python -m pregen_pde_tpu_torch generate --workload
+{ns_spectral,fpo_regular,fpo_hole,fpo_multi_hole,ldc_regular}`` and
+``python -m pregen_pde_tpu_torch evaluate --model scot-B``. The package
+imports nothing of JAX and nothing of the JAX package.
 """
 
 __version__ = "0.1.0"

@@ -3,14 +3,24 @@
     python -m pregen_pde_tpu_torch generate --workload ns_spectral --n 256 --out dir/
     python -m pregen_pde_tpu_torch generate --workload fpo_multi_hole --n 128 \
         --time-scale 1.0 --out dir/
+    python -m pregen_pde_tpu_torch evaluate --model scot-B --data d.npy --ckpt w.npz
 
-Same ``generate`` flags as ``python -m pregen_pde_tpu generate`` for the
+``generate``: the same flags as ``python -m pregen_pde_tpu generate`` for the
 spectral-NS workload and the four masked-geometry workloads (fpo_regular,
-fpo_hole, fpo_multi_hole, ldc_regular), plus ``--device`` (default
-``cuda``; raises when CUDA is asked for and absent). ``--method`` applies to
-ns_spectral only; ``--max-steps-per-program`` is not ported. Prints the
-kernel launch counts on a line of its own (and, for a masked workload, the
-sub-bucket and retry counts on another), then one JSON summary line.
+fpo_hole, fpo_multi_hole, ldc_regular). ``--method`` applies to ns_spectral
+only; ``--max-steps-per-program`` is not ported. Prints the kernel launch
+counts on a line of its own (and, for a masked workload, the sub-bucket and
+retry counts on another), then one JSON summary line.
+
+``evaluate``: the contract-npy form of ``python -m pregen_pde_tpu
+evaluate`` for scOT (``--model scot`` or ``scot-T/S/B/L``): AR rollout
+patterns and the accumulation error on the test split, printed as the same
+``{"patterns": ..., "accumulation": ...}`` JSON after a line with the K3 and
+K4 launch counts. ``--ckpt`` is an ``.npz`` of the flax parameter tree
+flattened with ``/`` or a ``.pt`` state_dict of the port.
+
+Both take ``--device`` (default ``cuda``; raises when CUDA is asked for and
+absent; ``cpu`` runs the plain versions of the kernels).
 """
 
 from __future__ import annotations
@@ -121,6 +131,84 @@ def _cmd_generate(args):
           flush=True)
 
 
+def _make_model(name: str, in_size: int, in_channels: int = 7, out_channels: int = 3,
+                impl: str = "auto"):
+    """scOT from dataset-derived dims (``_make_model`` of the JAX CLI); the
+    other model families wait for later slices. ``impl`` sets both
+    lowerings (``models/scot.py``): "auto" is the kernels on a CUDA device."""
+    from pregen_pde_tpu_torch.models.scot import MODEL_SIZES, ScOT, ScOTConfig
+
+    size = name.split("-")[1].upper() if "-" in name else "T"
+    if not name.startswith("scot") or size not in MODEL_SIZES:
+        raise SystemExit(f"model {name!r} is not ported; evaluate takes scot or "
+                         f"scot-{{{','.join(MODEL_SIZES)}}}")
+    return ScOT(ScOTConfig(image_size=in_size, num_channels=in_channels,
+                           num_out_channels=out_channels, attention_impl=impl, block_impl=impl,
+                           **MODEL_SIZES[size]))
+
+
+def _evaluate_ckpt(ckpt, model_name, data, patterns_str, batch_size, device,
+                   label_description=None, impl: str = "auto") -> dict:
+    """Rollout-pattern + accumulation-error evaluation of one checkpoint on
+    the test split of a contract array (``_evaluate_ckpt`` of the JAX CLI)."""
+    from pregen_pde_tpu_torch.evalx.inference import accumulation_error
+    from pregen_pde_tpu_torch.evalx.rollout import evaluate_patterns
+    from pregen_pde_tpu_torch.models.convert import load_checkpoint
+    from pregen_pde_tpu_torch.training.datasets import TimePairConfig, TimePairDataset
+
+    t_steps = data.shape[1] - 1
+    cfg = TimePairConfig(max_num_time_steps=t_steps, allowed_transitions=None,
+                         n_val=max(2, data.shape[0] // 10), n_test=max(2, data.shape[0] // 10))
+    train = TimePairDataset(data, cfg, "train")
+    test = TimePairDataset(data, cfg, "test", mean=train.mean, std=train.std)
+    model = _make_model(model_name, data.shape[2], impl=impl)
+    load_checkpoint(model, ckpt)
+    model = model.to(device).eval()
+    patterns = [[int(x) for x in p.strip("[] ").split(",")] for p in patterns_str.split(";")]
+    patterns = [p for p in patterns if sum(p) <= t_steps]
+    res = evaluate_patterns(model, test, patterns, batch_size=batch_size,
+                            label_description=label_description, device=device)
+    acc = accumulation_error(model, test, max_steps=min(7, t_steps), batch_size=batch_size,
+                             device=device)
+    return {"patterns": res, "accumulation": acc}
+
+
+def _cmd_evaluate(args):
+    import os
+
+    import torch
+
+    from pregen_pde_tpu_torch.ops import swin_block, window_attention
+    from pregen_pde_tpu_torch.utils.device import resolve_device
+
+    if args.dataset or args.data_dir or args.ar_steps:
+        raise SystemExit("evaluate on the benchmark datasets (--dataset/--data-dir, "
+                         "--ar-steps) is not ported yet; pass a contract .npy with --data")
+    if args.data is None:
+        raise SystemExit("evaluate needs --data <contract.npy>")
+    if ":" in args.data and not os.path.exists(args.data):
+        raise SystemExit("evaluate on a benchmark dataset ('<name>:<path>') is not ported yet")
+    if os.path.isdir(args.ckpt):
+        raise SystemExit("orbax checkpoint directories are not read yet; export the params "
+                         "to an .npz (README) or pass a .pt state_dict")
+    device = resolve_device(args.device)
+    data = np.asarray(np.load(args.data, mmap_mode="r"))
+    swin_block.reset_launches()
+    window_attention.reset_launches()
+    try:
+        with torch.inference_mode():
+            res = _evaluate_ckpt(args.ckpt, args.model, data, args.patterns, args.batch_size,
+                                 device, label_description=args.label_description)
+    except FileNotFoundError as e:  # clean CLI error, no traceback
+        raise SystemExit(str(e)) from None
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(json.dumps({"kernel_launches": {swin_block.LIB_NAME: swin_block.launches,
+                                          window_attention.LIB_NAME: window_attention.launches}}),
+          flush=True)
+    print(json.dumps(res), flush=True)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="pregen_pde_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -161,6 +249,22 @@ def main(argv=None):
     g.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises when CUDA is absent")
     g.set_defaults(fn=_cmd_generate)
+
+    e = sub.add_parser("evaluate")
+    e.add_argument("--model", required=True, help="scot, or scot-T/S/B/L (scot = scot-T)")
+    e.add_argument("--data", default=None, help="contract .npy path")
+    e.add_argument("--dataset", default=None, help="not ported yet (raises)")
+    e.add_argument("--data-dir", default=None, help="not ported yet (raises)")
+    e.add_argument("--ckpt", required=True,
+                   help="an .npz of the flax params flattened with '/', or a .pt state_dict")
+    e.add_argument("--patterns", default="[7];[2,2,2,1];[1,1,1,1,1,1,1]")
+    e.add_argument("--ar-steps", default=None, help="not ported yet (raises)")
+    e.add_argument("--label-description", default=None,
+                   help="per-variable-group error reporting, e.g. '[Ux,Uy],[p]'")
+    e.add_argument("--batch-size", type=int, default=16)
+    e.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' raises when CUDA is absent")
+    e.set_defaults(fn=_cmd_evaluate)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -2,8 +2,8 @@
 
 Batches stream to numbered ``<prefix>_batch_<k>.npy`` shards (or one growable
 HDF5 dataset) from a background thread fed by a bounded queue. float32 npy
-shards route to the C++ writer of ``pregen_pde_tpu.native`` (numpy + ctypes,
-no JAX) when its toolchain is available.
+shards route to the C++ writer of ``pregen_pde_tpu_torch.native`` (numpy +
+ctypes) when its toolchain is available.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ class ShardWriter:
                 resume: bool = False):
         # the C++ writer is float32-only; other storage dtypes stay in Python
         if fmt == "npy" and backend in ("auto", "native") and dtype == "float32":
-            from pregen_pde_tpu import native
+            from pregen_pde_tpu_torch import native
 
             if native.available():
                 return native.NativeShardWriter(out_dir, prefix, queue_depth,

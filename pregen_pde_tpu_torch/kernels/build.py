@@ -3,7 +3,8 @@
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into a shared
 library with a plain C interface, loaded with ctypes. The build happens at
 first use into ``pregen_pde_tpu_torch/_build/`` (git-ignored), with the
-source hash in the artifact name, so a changed source rebuilds and an
+source hash (the ``.cu`` and the ``csrc/*.cuh`` headers) in the artifact
+name, so a changed source rebuilds and an
 unchanged one loads in milliseconds. A missing ``nvcc`` or a failed build
 raises, naming the cause; nothing falls back.
 """
@@ -43,7 +44,8 @@ def find_nvcc() -> str | None:
 
 
 def library_path(name: str, build_dir: Path = BUILD_DIR) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers a source may include count as part of it
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir / f"{name}_{tag}.so"
 

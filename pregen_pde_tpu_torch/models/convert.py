@@ -1,0 +1,79 @@
+"""scOT checkpoints: a flax parameter tree → the port's state_dict, and the
+``--ckpt`` loader of ``evaluate``.
+
+The port's modules carry the flax names (``models/scot.py``), so a flax
+path maps to a state_dict key by joining with ``.``; only the layouts
+differ:
+
+- Dense ``kernel`` (in, out) → ``weight`` (out, in);
+- Conv ``kernel`` HWIO → ``weight`` OIHW (the depthwise (7, 7, 1, C) too);
+- the patch recovery's ConvTranspose ``kernel`` (k, k, in, out), applied by
+  flax without a flip → a ``ConvTranspose2d`` ``weight`` (in, out, k, k),
+  flipped in both spatial axes;
+- every other leaf (``logit_scale``, ``layer_scale``, ``scale``/``bias`` of
+  an unconditioned LayerNorm, ``mask_token``, ``pos_embed``, batch-norm
+  affines) as it is.
+
+The fused and plain routes share this one state_dict, as both JAX routes
+share one tree.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+RECOVERY = "patch_recovery"
+
+
+def flatten(params: dict, prefix: str = "") -> dict:
+    """Nested dict of arrays → {"a/b/c": array}; a flat dict passes through."""
+    out = {}
+    for k, v in params.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def scot_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """A flax scOT parameter tree (nested, or flattened with ``/``-joined
+    paths) of numpy arrays → the port's ``ScOT`` state_dict (float32)."""
+    sd = {}
+    for path, value in flatten(params).items():
+        parts = path.split("/")
+        a = np.asarray(value, dtype=np.float32)
+        if parts[-1] == "kernel":
+            parts[-1] = "weight"
+            if a.ndim == 2:
+                a = a.T
+            elif a.ndim == 4 and parts[0] == RECOVERY:
+                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
+            elif a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            else:
+                raise ValueError(f"unexpected kernel rank {a.ndim} at {path}")
+        sd[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(a))
+    return sd
+
+
+def load_checkpoint(model: torch.nn.Module, path: str | Path) -> None:
+    """Load ``path`` into ``model`` (strict): an ``.npz`` of the flax tree
+    flattened with ``/`` (``flax.traverse_util.flatten_dict(params,
+    sep="/")``), or a ``.pt`` state_dict of the port."""
+    path = Path(path)
+    if not path.is_file():
+        raise FileNotFoundError(f"no checkpoint file at {path}")
+    if path.suffix == ".npz":
+        with np.load(path) as z:
+            sd = scot_state_dict_from_flax({k: z[k] for k in z.files})
+    elif path.suffix == ".pt":
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    else:
+        raise ValueError(f"--ckpt takes a .npz of the flax tree or a .pt state_dict; got {path} "
+                         "(orbax checkpoint directories are not read yet)")
+    model.load_state_dict(sd, strict=True)

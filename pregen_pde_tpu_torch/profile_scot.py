@@ -1,0 +1,134 @@
+"""Where the time goes: the scOT-B forward on one CUDA card.
+
+    python -m pregen_pde_tpu_torch.profile_scot [--json out.json]
+
+scOT-B at 128², 7 → 3 channels, seeded weights (``seeded_scot``), at
+batch 16 and at batch 3 (what ``evaluate`` runs on a 32-trajectory shard).
+Printed as one line each (the card's name and power limit first) and, with
+``--json``, written in full:
+
+1. one forward per route — auto (K3 at C ≤ 384, K4 in stage 3),
+   attention-only (K4 everywhere) and plain — in ms (CUDA events, 5 runs);
+2. ``torch.profiler`` over one auto forward: device busy time, host wall,
+   idle share and the time by kernel;
+3. the ``evaluate`` main path in-process (``_evaluate_ckpt`` on a random
+   (32, 21, 128², 6) contract, seeded ``.pt`` weights, batch size 16: 3 test
+   trajectories, 19 forwards): the seconds to build the model and load the
+   checkpoint, the whole evaluation's wall, and ``torch.profiler`` over it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from pregen_pde_tpu_torch.profile_k1 import _card, _profiled
+
+ROUTES = {"auto": ("auto", "auto"), "attention-only": ("auto", "plain"),
+          "plain": ("plain", "plain")}
+
+
+def seeded_scot(name: str = "scot-B", image_size: int = 128, seed: int = 0):
+    """A scOT with torch's default init under ``seed``, every parameter then
+    moved by N(0, 0.02²) (the CondLN time maps start at zero). On the CPU."""
+    from pregen_pde_tpu_torch.__main__ import _make_model
+
+    torch.manual_seed(seed)
+    model = _make_model(name, image_size)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def set_route(model, route: str) -> None:
+    attention_impl, block_impl = ROUTES[route]
+    for _, layer in model.swin_layers():
+        layer.attention.impl, layer.block_impl = attention_impl, block_impl
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """Mean ms of ``fn`` over ``reps`` runs after one warm-up, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _evaluate_main_path(model, dev) -> dict:
+    from pregen_pde_tpu_torch.__main__ import _evaluate_ckpt, _make_model
+    from pregen_pde_tpu_torch.models.convert import load_checkpoint
+
+    data = np.random.default_rng(0).normal(size=(32, 21, 128, 128, 6)).astype(np.float32)
+    patterns = "[7];[2,2,2,1];[1,1,1,1,1,1,1]"
+    with tempfile.TemporaryDirectory() as work:
+        ckpt = os.path.join(work, "w.pt")
+        torch.save(model.state_dict(), ckpt)
+        t0 = time.perf_counter()
+        m = _make_model("scot-B", 128)
+        t1 = time.perf_counter()
+        load_checkpoint(m, ckpt)
+        t2 = time.perf_counter()
+        m.to(dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del m
+        with torch.inference_mode():
+            _evaluate_ckpt(ckpt, "scot-B", data, patterns, 16, dev)  # warm-up
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            _evaluate_ckpt(ckpt, "scot-B", data, patterns, 16, dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t4
+            _, prof = _profiled(lambda: _evaluate_ckpt(ckpt, "scot-B", data, patterns, 16, dev))
+    return {"build_model_s": t1 - t0, "load_ckpt_s": t2 - t1, "to_device_s": t3 - t2,
+            "evaluate_ckpt_s": wall, "profiled": prof}
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(prog="pregen_pde_tpu_torch.profile_scot")
+    p.add_argument("--json", help="write the full results here")
+    args = p.parse_args(argv)
+
+    from pregen_pde_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda:0")
+    card = _card()
+    print(card, flush=True)
+    res: dict = {"card": card, "torch": torch.__version__}
+    model = seeded_scot().to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for batch in (16, 3):
+        x = torch.randn(batch, 128, 128, 7, generator=gen, device=dev)
+        t = torch.rand(batch, generator=gen, device=dev)
+        out: dict = {}
+        with torch.inference_mode():
+            for route in ROUTES:
+                set_route(model, route)
+                out[f"{route}_ms"] = event_ms(lambda: model(x, t))
+            set_route(model, "auto")
+            _, out["auto_profiled"] = _profiled(lambda: model(x, t))
+        res[f"B{batch}"] = out
+        print(f"scOT-B 128^2 B={batch} one forward: {json.dumps(out)} | {card}", flush=True)
+    res["evaluate"] = _evaluate_main_path(model, dev)
+    print(f"evaluate main path (in-process): {json.dumps(res['evaluate'])} | {card}", flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(res, f, indent=1)
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -97,3 +97,83 @@ def test_k2_launch_count():
     torch.cuda.synchronize()
     # init + frame 0, then per snapshot 3 steps × 7 launches + the frame
     assert npc.launches == 2 + 2 * (3 * 7 + 1)
+
+
+# K4 and K3 against their plain versions, relative L2: chip_smoke.py's
+# bars, 30x the differences measured when both are right (NVIDIA H100)
+K4_VS_PLAIN_BAR = 1.5e-5
+K3_VS_PLAIN_BAR = 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,h,n,hd,nw", [(64, 3, 256, 32, 4), (16, 24, 16, 32, 1),
+                                          (8, 2, 16, 8, 4)])
+def test_k4_kernel_matches_plain(nb, h, n, hd, nw):
+    _need_cuda()
+    from pregen_pde_tpu_torch.ops import window_attention as wa
+
+    g = torch.Generator(device="cuda").manual_seed(n)
+    q, k, v = (torch.randn(nb, h, n, hd, generator=g, device="cuda") for _ in range(3))
+    bias = 3 * torch.randn(nw, h, n, n, generator=g, device="cuda")
+    wa.reset_launches()
+    got = wa.window_attention(q, k, v, bias)
+    assert wa.launches == 1
+    assert rel_l2(got, wa.window_attention_plain(q, k, v, bias)) <= K4_VS_PLAIN_BAR
+    with pytest.raises(NotImplementedError, match="training slice"):
+        wa.window_attention(q.requires_grad_(), k, v, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,hw,c,heads,ws,nw", [(4, 32, 96, 3, 16, 4), (4, 16, 192, 6, 16, 1),
+                                                (4, 8, 384, 12, 8, 1), (2, 8, 16, 2, 4, 4)])
+def test_k3_kernel_matches_plain(B, hw, c, heads, ws, nw):
+    _need_cuda()
+    from pregen_pde_tpu_torch.ops import swin_block as sb
+
+    g = torch.Generator(device="cuda").manual_seed(c)
+    rn = lambda *s: 0.1 * torch.randn(*s, generator=g, device="cuda")
+    n, hd = ws * ws, c // heads
+    args = (10 * rn(B, hw, hw, c), 30 * rn(nw, heads, n, n), 1 + 9 * torch.rand(heads, device="cuda"),
+            rn(heads, c, hd), rn(heads, 1, hd), rn(heads, c, hd), rn(heads, c, hd), rn(heads, 1, hd),
+            rn(heads, hd, c), rn(1, c), rn(B, c) + 1, rn(B, c), rn(c, 4 * c), rn(1, 4 * c),
+            rn(4 * c, c), rn(1, c), rn(B, c) + 1, rn(B, c), 1 + rn(B, 2))
+    sb.reset_launches()
+    got = sb.fused_swin_block(*args, heads, ws, 1e-5)
+    assert sb.launches == sb.KERNELS_PER_CALL
+    assert rel_l2(got, sb.swin_block_plain(*args, heads, ws, 1e-5)) <= K3_VS_PLAIN_BAR
+
+
+@pytest.mark.cuda
+def test_scot_kernel_routes_match_plain():
+    """A small ScOT on the card: auto (K3 at every layer, C <= 384) and
+    attention-only (K4 at every layer) against the plain route, with the
+    exact launch counts of one forward."""
+    _need_cuda()
+    from pregen_pde_tpu_torch.models.scot import ScOT, ScOTConfig
+    from pregen_pde_tpu_torch.ops import swin_block as sb
+    from pregen_pde_tpu_torch.ops import window_attention as wa
+    from pregen_pde_tpu_torch.profile_scot import set_route
+
+    kw = dict(image_size=16, patch_size=2, num_channels=7, num_out_channels=3, embed_dim=16,
+              depths=(2, 2), num_heads=(2, 4), skip_connections=(1, 0), window_size=4)
+    torch.manual_seed(0)
+    model = ScOT(ScOTConfig(**kw)).cuda().eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.1 * torch.randn_like(p))
+    x = torch.randn(2, 16, 16, 7, device="cuda")
+    t = torch.rand(2, device="cuda")
+    outs = {}
+    with torch.inference_mode():
+        for route in ("plain", "auto", "attention-only"):
+            set_route(model, route)
+            sb.reset_launches()
+            wa.reset_launches()
+            outs[route] = model(x, t)
+            torch.cuda.synchronize()
+            outs[route, "launches"] = (sb.launches, wa.launches)
+    assert outs["plain", "launches"] == (0, 0)
+    assert outs["auto", "launches"] == (8 * sb.KERNELS_PER_CALL, 0)
+    assert outs["attention-only", "launches"] == (0, 8)
+    for route in ("auto", "attention-only"):
+        assert rel_l2(outs[route], outs["plain"]) <= 1e-4

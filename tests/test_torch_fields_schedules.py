@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from pregen_pde_tpu.core.grid import SpectralGrid2D
+from pregen_pde_tpu.core.grid import SpectralGrid2D as JaxGrid
 from pregen_pde_tpu.fields import geometry as jgeo
 from pregen_pde_tpu.fields.grf import grf_2d as jax_grf_2d
 from pregen_pde_tpu.solvers import schedules as jsched
+from pregen_pde_tpu_torch.core import SpectralGrid2D
 from pregen_pde_tpu_torch.fields import geometry as tgeo
 from pregen_pde_tpu_torch.fields.grf import draw_grf_noise, grf_filter, grf_spectrum_filter
 from pregen_pde_tpu_torch.solvers import schedules as tsched
@@ -27,7 +28,7 @@ def test_grf_filter_matches_jax_on_jax_noise(n, alpha, tau):
     # the white noise grf_2d draws internally (`fields/grf.py:54`)
     xi = np.stack([np.asarray(jax.random.normal(k, (n, n), dtype=jnp.float32))
                    for k in keys])
-    ref = np.stack([np.asarray(jax_grf_2d(k, grid, alpha=alpha, tau=tau)) for k in keys])
+    ref = np.stack([np.asarray(jax_grf_2d(k, JaxGrid(n), alpha=alpha, tau=tau)) for k in keys])
     got = grf_filter(to_torch(xi), grid, alpha=alpha, tau=tau)
     assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
     # f32 FFTs of two libraries: roundoff only

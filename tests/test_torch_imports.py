@@ -1,0 +1,54 @@
+"""The port imports nothing of JAX and nothing of the JAX package: every
+module of ``pregen_pde_tpu_torch`` and ``chip_smoke.py`` is imported in a
+fresh interpreter, and their sources are scanned for such imports."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "pregen_pde_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "pregen_pde_tpu")
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    for p in sorted(PORT.rglob("*.py")):
+        parts = p.relative_to(ROOT).with_suffix("").parts
+        yield ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+def test_port_modules_import_no_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {list(_modules())!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=120, cwd=ROOT)
+    assert r.returncode == 0 and "clean" in r.stdout, r.stderr
+
+
+def test_port_sources_have_no_jax_package_imports():
+    bad = []
+    for path in _sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names
+                    if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad

@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from pregen_pde_tpu.core.config import NSVorticityConfig
+from pregen_pde_tpu.core.config import NSVorticityConfig as JaxConfig
 from pregen_pde_tpu.datagen import pipeline as jpipe
+from pregen_pde_tpu_torch.core import NSVorticityConfig
 from pregen_pde_tpu_torch.datagen import pipeline as tpipe
 from pregen_pde_tpu_torch.datagen.writer import ShardWriter, load_shards, scan_existing_shards
 from pregen_pde_tpu_torch.kernels import build as kbuild
@@ -33,15 +34,16 @@ def _jax_draws(key, n_traj, n):
 
 @pytest.mark.parametrize("vary", [True, False])
 def test_slice_matches_jax_generate_ns_batch(vary):
-    solver_cfg = NSVorticityConfig(resolution=32)
+    solver_kw = dict(resolution=32)
     if not vary:  # keep the fixed horizon short: t_end 10 would be 100k steps
-        solver_cfg = NSVorticityConfig(resolution=32, t_end=4e-3, n_snapshots=2)
-    kw = dict(solver=solver_cfg, batch_size=4, time_scale=1e-6, vary_difficulty=vary)
+        solver_kw = dict(resolution=32, t_end=4e-3, n_snapshots=2)
+    kw = dict(batch_size=4, time_scale=1e-6, vary_difficulty=vary)
     key = jax.random.key(3)
-    ref = jpipe.generate_ns_batch(key, jpipe.GenerationConfig(**kw))
+    ref = jpipe.generate_ns_batch(key, jpipe.GenerationConfig(
+        solver=JaxConfig(**solver_kw), **kw))
     xi, z_re = _jax_draws(key, 4, 32)
-    got = tpipe.generate_ns_batch_from_inputs(to_torch(xi), to_torch(z_re),
-                                              tpipe.GenerationConfig(**kw))
+    got = tpipe.generate_ns_batch_from_inputs(to_torch(xi), to_torch(z_re), tpipe.GenerationConfig(
+        solver=NSVorticityConfig(**solver_kw), **kw))
     assert got.shape == ref.shape and got.dtype == ref.dtype
     assert rel_l2(got, ref) <= 1e-5
     # Re_norm, mask and SDF channels are exact

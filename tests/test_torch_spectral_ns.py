@@ -13,15 +13,22 @@ import numpy as np
 import pytest
 import torch
 
-from pregen_pde_tpu.core.config import NSVorticityConfig
+from pregen_pde_tpu.core.config import NSVorticityConfig as JaxConfig
 from pregen_pde_tpu.solvers import spectral_ns_pallas as jsnp
 from pregen_pde_tpu.solvers.spectral_ns import NSVorticitySolver as JaxSolver
 from pregen_pde_tpu.solvers.spectral_ns import cfl_dt as jax_cfl_dt
+from pregen_pde_tpu_torch.core import NSVorticityConfig
 from pregen_pde_tpu_torch.solvers import spectral_ns as tsn
 from pregen_pde_tpu_torch.solvers import spectral_ns_cuda as tsnc
 from pregen_pde_tpu_torch.utils.parity import rel_l2, to_numpy, to_torch
 
 F64 = 1e-10  # float64 parity bar: same algorithm, two FFT libraries
+
+
+def _solvers(**fields):
+    """The JAX solver and the port's, each on its own package's config of
+    the same fields."""
+    return JaxSolver(JaxConfig(**fields)), tsn.NSVorticitySolver(NSVorticityConfig(**fields))
 
 
 def _w0(n, batch, seed=0):
@@ -31,8 +38,8 @@ def _w0(n, batch, seed=0):
 
 @pytest.mark.parametrize("forcing", ["fno", "kolmogorov", "none"])
 def test_constants_and_forcing_match_jax(forcing):
-    cfg = NSVorticityConfig(resolution=32, forcing=forcing)
-    jsol, tsol = JaxSolver(cfg), tsn.NSVorticitySolver(cfg)
+    jsol, tsol = _solvers(resolution=32, forcing=forcing)
+    cfg = tsol.cfg
     c = tsn.constants(tsol.grid, torch.float64)
     kx, ky, ik2, de = (np.asarray(a) for a in jsol._consts_full(jnp.float64))
     np.testing.assert_array_equal(to_numpy(c["kx"]), kx)
@@ -42,7 +49,7 @@ def test_constants_and_forcing_match_jax(forcing):
     np.testing.assert_array_equal(to_numpy(c["k2"]), jsol.grid.k2_full)
     from pregen_pde_tpu.solvers.spectral_ns import make_forcing as jax_make_forcing
 
-    fj = jax_make_forcing(cfg, jsol.grid)
+    fj = jax_make_forcing(jsol.cfg, jsol.grid)
     ft = tsn.forcing_hat(cfg, tsol.grid, torch.float64, "cpu")
     if fj is None:
         assert ft is None
@@ -53,8 +60,7 @@ def test_constants_and_forcing_match_jax(forcing):
 
 
 def test_operators_match_jax_f64():
-    cfg = NSVorticityConfig(resolution=32, drag=0.05)
-    jsol, tsol = JaxSolver(cfg), tsn.NSVorticitySolver(cfg)
+    jsol, tsol = _solvers(resolution=32, drag=0.05)
     w = _w0(32, 2, seed=1)
     wj, wt = jnp.asarray(w), to_torch(w)
     jf = jax.vmap(jsol.fields_from_vorticity)(wj)
@@ -72,10 +78,8 @@ def test_operators_match_jax_f64():
 
 @pytest.mark.parametrize("scheme", ["ab2", "heun"])
 def test_packed_trajectory_matches_jax_f64(scheme):
-    cfg = NSVorticityConfig(resolution=32, viscosity=1e-3, dt=1e-3, t_end=6e-3,
-                            n_snapshots=3, include_initial=True, forcing="fno",
-                            drag=0.1)
-    jsol, tsol = JaxSolver(cfg), tsn.NSVorticitySolver(cfg)
+    jsol, tsol = _solvers(resolution=32, viscosity=1e-3, dt=1e-3, t_end=6e-3,
+                          n_snapshots=3, include_initial=True, forcing="fno", drag=0.1)
     method = {"ab2": "cn_ab2_packed", "heun": "cn_heun_packed"}[scheme]
     w0 = _w0(32, 3, seed=2)
     nu = np.array([1e-3, 3e-3, 2e-2])
@@ -96,14 +100,14 @@ def test_k1_plain_path_matches_pallas_interpret(output):
     """K1's wrapper on CPU tensors (its plain version) vs the JAX Pallas
     kernel in interpret mode: 128², B=2, 3 snapshots × 1 step, f32."""
     n = 128
-    cfg = NSVorticityConfig(resolution=n, viscosity=1e-3, dt=1e-3, t_end=3e-3,
-                            n_snapshots=3, include_initial=True, forcing="fno")
+    jsol, tsol = _solvers(resolution=n, viscosity=1e-3, dt=1e-3, t_end=3e-3,
+                          n_snapshots=3, include_initial=True, forcing="fno")
     w0 = _w0(n, 2, seed=3).astype(np.float32)
     nu = np.array([1e-3, 2e-3], np.float32)
-    ref = np.asarray(jsnp.build_batched_traj(JaxSolver(cfg), output=output)(
+    ref = np.asarray(jsnp.build_batched_traj(jsol, output=output)(
         jnp.asarray(w0), jnp.asarray(nu)))
     tsnc.reset_launches()
-    traj = tsnc.build_batched_traj(tsn.NSVorticitySolver(cfg), output=output)
+    traj = tsnc.build_batched_traj(tsol, output=output)
     got = traj(to_torch(w0), to_torch(nu))
     assert tsnc.launches == 0  # CPU tensors never reach the CUDA library
     assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
