@@ -75,7 +75,31 @@ Phases (any failure exits nonzero; no phase catches a failure):
     default patterns and the 7 accumulation steps, the exact K3 and K4
     launches of its 19 forwards, and agreement with an in-process
     evaluation of the same data through the plain route (reported errors
-    within relative 1e-4).
+    within relative 1e-4);
+17. K4's backward against its plain version at the train main path's
+    stage 3 (nb 16, 24 heads, n 16) and at stage 0 (nb 64, 3 heads, n 256,
+    nw 4) at batch 16: relative L2 of dq, dk, dv and dbias each ≤ 2e-5;
+    the kernel, the plain version and the backward of
+    ``scaled_dot_product_attention`` with the bias as a float mask that
+    requires a gradient timed;
+18. K3's backward against its plain version at stages 0 (shifted, nw 4),
+    1 and 2 of scOT-B at batch 16: all 19 cotangents, relative L2 each
+    ≤ 7.5e-5; kernel and plain timed;
+19. one scOT-B training step (128², batch 16, drop-path on, the same
+    seeded weights, batch and generator state) through the kernels and
+    through the plain route: the loss within relative 1e-5, every
+    parameter's gradient within relative L2 1.1e-3 (the worst printed), the
+    exact launches of one step (K3 48 × 7 forward and 48 × 38 backward, K4
+    16 and 16 × 3); both routes timed;
+20. the train main path: ``train --model scot-B --epochs 1 --batch-size 16
+    --ckpt <tmp>`` in a subprocess on phase 10's shard (32 steps, 3 val
+    batches): the exact launches of all four kernels, finite loss and val
+    numbers, ``best.pt`` written; then ``evaluate --ckpt <tmp>/best.pt``
+    prints finite errors;
+21. ``mix-sweep --model scot-B --alphas 0.5 --total-trajectories 16
+    --epochs 1`` in a subprocess, hard = phase 10's ``fpo_multi_hole``
+    shard, easy = 16 ``fpo_regular`` trajectories generated here: finite
+    numbers for both test splits, every kernel launched.
 
 The 1e-5 bar of K1 against the plain float32 version is about 30× what the
 two differ by when both are right (2.4e-7 vorticity, 3.6e-7 fields at the
@@ -86,7 +110,10 @@ phase 8 (a), growing over the snapshots; NVIDIA H100).
 K3's, K4's and the whole model's bars are about 30× what each differs from
 its plain version by when both are right (7.0e-7, 4.8e-7 and 8.4e-7 worst,
 NVIDIA H100); the evaluate bar leaves ~100× over 9.3e-7 for the 7-step
-rollouts. Each kernel's ``bound_ms`` is the larger of its bytes (inputs read
+rollouts. The backward bars are about 30× the worst differences of the
+first run of phases 17–19 (K3 2.5e-6, one train step's gradients 3.6e-5 at
+a logit scale, median 2.3e-7; K4's 2e-5 is ~60× its 3.3e-7; NVIDIA H100);
+the loss agreed to the bit, and its bar is 30× the forward's 3e-7. Each kernel's ``bound_ms`` is the larger of its bytes (inputs read
 once, outputs written once) over 3.35 TB/s and its float32 operations over
 67 TFLOP/s, computed from the shapes of the call that is timed.
 
@@ -116,6 +143,10 @@ K4_VS_PLAIN_BAR = 1.5e-5
 K3_VS_PLAIN_BAR = 2e-5
 SCOT_VS_PLAIN_BAR = 2.5e-5
 EVAL_VS_PLAIN_RTOL = 1e-4
+K4_BWD_VS_PLAIN_BAR = 2e-5
+K3_BWD_VS_PLAIN_BAR = 7.5e-5
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_BAR = 1.1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 
@@ -357,7 +388,8 @@ def main() -> None:
     k2_line, fpo = k2_phases(dev, card, builds[npc.LIB_NAME], t0_build)
     k3_line, k4_line = scot_phases(dev, card, builds, t0_build, fpo)
     pool.shutdown()
-    say(json.dumps({"kernels": [k1_line, k2_line, k3_line, k4_line]}))
+    k3_bwd_line, k4_bwd_line = train_phases(dev, card, fpo)
+    say(json.dumps({"kernels": [k1_line, k2_line, k3_line, k4_line, k3_bwd_line, k4_bwd_line]}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
@@ -735,6 +767,251 @@ def scot_phases(dev, card: str, builds: dict, t0_build: float, fpo) -> tuple[dic
         shutil.rmtree(work, ignore_errors=True)
     k3_line["launches"] = counts[sb.LIB_NAME]
     k4_line["launches"] = counts[wa.LIB_NAME]
+    return k3_line, k4_line
+
+
+def train_phases(dev, card: str, fpo) -> tuple[dict, dict]:
+    """Phases 17-21: the backward kernels of K4 and K3, one scOT-B train
+    step in two routes, and the ``train`` and ``mix-sweep`` main paths. →
+    the kernels line's entries of K3's and K4's backward."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from pregen_pde_tpu_torch.kernels import build
+    from pregen_pde_tpu_torch.models.scot import shift_attn_mask
+    from pregen_pde_tpu_torch.ops import swin_block as sb
+    from pregen_pde_tpu_torch.ops import window_attention as wa
+    from pregen_pde_tpu_torch.profile_scot import event_ms, seeded_scot, set_route
+    from pregen_pde_tpu_torch.training.losses import relative_lp_loss
+    from pregen_pde_tpu_torch.utils.parity import rel_l2
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    mask0 = torch.from_numpy(shift_attn_mask(32, 32, 16, 8)).to(dev)  # stage 0: nw = 4
+
+    # -- 17. K4 backward against its plain version; SDPA's backward as the yardstick ----------
+    k4_line = None
+    for label, nb, h, n, hd, nw in (("stage 3, B=16 (main path)", 16, 24, 16, 32, 1),
+                                    ("stage 0 shifted, B=16", 64, 3, 256, 32, 4)):
+        q = F.normalize(rn(nb, h, n, hd), dim=-1) * 10.0
+        k = F.normalize(rn(nb, h, n, hd), dim=-1)
+        v, do = rn(nb, h, n, hd), rn(nb, h, n, hd)
+        bias = 16.0 * torch.sigmoid(rn(1, h, n, n))
+        bias = bias + mask0[:, None] if nw > 1 else bias
+        out = wa.window_attention_plain(q, k, v, bias)
+        got = wa._backward_kernel(q, k, v, bias, out, do)
+        ref = wa.window_attention_bwd_plain(q, k, v, bias, do)
+        torch.cuda.synchronize()
+        errs = [rel_l2(a, b) for a, b in zip(got, ref)]
+        if not (all(torch.isfinite(g).all() for g in got) and max(errs) <= K4_BWD_VS_PLAIN_BAR):
+            fail(f"K4 backward vs plain ({label}): rel L2 (dq, dk, dv, dbias) {errs} > "
+                 f"{K4_BWD_VS_PLAIN_BAR:.0e}")
+        lead = lambda t: t.detach().reshape(nb // nw, nw, h, n, -1).requires_grad_()
+        qv, kv, vv = lead(q), lead(k), lead(v)
+        bias_l = bias.detach().clone().requires_grad_()
+        lib_out = F.scaled_dot_product_attention(qv, kv, vv, attn_mask=bias_l, scale=1.0)
+        lib_in, dov = (qv, kv, vv, bias_l), do.reshape(lib_out.shape)
+        lib = torch.autograd.grad(lib_out, lib_in, dov, retain_graph=True, allow_unused=True)
+        lib_bias = "with" if lib[3] is not None else "WITHOUT"
+        reps = 20 if n == 256 else 100
+        t_k = event_ms(lambda: wa._backward_kernel(q, k, v, bias, out, do), reps)
+        t_p = event_ms(lambda: wa.window_attention_bwd_plain(q, k, v, bias, do), reps)
+        t_l = event_ms(lambda: torch.autograd.grad(lib_out, lib_in, dov, retain_graph=True,
+                                                   allow_unused=True), reps)
+        # q, k, v, o, do read and dq, dk, dv written, the bias read and dbias
+        # written; the logits once, then dv, dp, dq, dk: 10 n² hd a (row, head)
+        b_ms, b_by = bound(4 * (8 * q.numel() + 2 * bias.numel()), 10.0 * nb * h * n * n * hd)
+        say(f"[17] K4 backward {label} (nb {nb}, h {h}, n {n}, hd {hd}, nw {nw}): rel L2 vs "
+            f"plain dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} dbias {errs[3]:.3e} (bar "
+            f"{K4_BWD_VS_PLAIN_BAR:.0e}); K4 bwd {t_k:.4f} ms | plain {t_p:.4f} ms | SDPA backward "
+            f"({lib_bias} a bias gradient) {t_l:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | {card}")
+        if k4_line is None:
+            k4_line = {"name": f"{wa.LIB_NAME}_bwd", "route": "cuda",
+                       "source": "pregen_pde_tpu_torch/csrc/window_attention.cu",
+                       "replaces": "pregen_pde_tpu/ops/window_attention.py:160",
+                       "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+                       "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": t_l}
+
+    # -- 18. K3 backward against its plain version --------------------------------------------------
+    k3_line = None
+    for label, B, hw, c, heads, ws, nw in (("stage 0 shifted, B=16 (main path)", 16, 32, 96, 3,
+                                            16, 4),
+                                           ("stage 1, B=16", 16, 16, 192, 6, 16, 1),
+                                           ("stage 2, B=16", 16, 8, 384, 12, 8, 1)):
+        n, hd, f = ws * ws, c // heads, 4 * c
+        w = lambda *shape: 0.02 * rn(*shape) * (c ** 0.5)
+        bias = 16.0 * torch.sigmoid(rn(1, heads, n, n))
+        args = (rn(B, hw, hw, c), bias + mask0[:, None] if nw > 1 else bias,
+                1.0 + 9.0 * torch.rand(heads, generator=gen, device=dev),
+                w(heads, c, hd), w(heads, 1, hd), w(heads, c, hd), w(heads, c, hd),
+                w(heads, 1, hd), w(heads, hd, c), w(1, c), 1.0 + w(B, c), w(B, c), w(c, f),
+                w(1, f), w(f, c), w(1, c), 1.0 + w(B, c), w(B, c),
+                (torch.rand(B, 2, generator=gen, device=dev) > 0.1).float() / 0.9)
+        dy = rn(B, hw, hw, c)
+        got = sb._backward_kernel(args, dy, heads, ws, 1e-5)
+        ref = sb.swin_block_bwd_plain(*args, dy, heads, ws, 1e-5)
+        torch.cuda.synchronize()
+        errs = {name: rel_l2(a, b) for name, a, b in zip(sb.COTANGENTS, got, ref)}
+        worst = max(errs, key=errs.get)
+        if not (all(torch.isfinite(g).all() for g in got) and errs[worst] <= K3_BWD_VS_PLAIN_BAR):
+            fail(f"K3 backward vs plain ({label}): {worst} rel L2 {errs[worst]:.3e} > "
+                 f"{K3_BWD_VS_PLAIN_BAR:.1e} (all: {json.dumps(errs)})")
+        t_k = event_ms(lambda: sb._backward_kernel(args, dy, heads, ws, 1e-5), 10)
+        t_p = event_ms(lambda: sb.swin_block_bwd_plain(*args, dy, heads, ws, 1e-5), 10)
+        M = B * hw * hw
+        # x, dy in and dx out; the weights in and their gradients out; the
+        # bias in and out; the per-sample affines and dp in and out. FLOP:
+        # twice the forward's products (activation and weight gradients)
+        # and the attention's dv, dp, dq, dk; the recompute is not counted
+        nbytes = 4 * (3 * M * c + 2 * (4 * c * c + 2 * c * f + 5 * c + f + args[1].numel())
+                      + 8 * B * c + 4 * B)
+        flops = 4.0 * M * c * (4 * c + 2 * f) + 8.0 * M * n * c
+        b_ms, b_by = bound(nbytes, flops)
+        say(f"[18] K3 backward {label} ({B}, {hw}², C {c}, {heads} heads, ws {ws}, nw {nw}): "
+            f"19 cotangents vs plain, worst {worst} rel L2 {errs[worst]:.3e} (bar "
+            f"{K3_BWD_VS_PLAIN_BAR:.1e}); K3 bwd {t_k:.4f} ms | plain {t_p:.4f} ms | bound "
+            f"{b_ms:.4f} ms ({b_by}) | {card}")
+        if k3_line is None:
+            k3_line = {"name": f"{sb.LIB_NAME}_bwd", "route": "cuda",
+                       "source": "pregen_pde_tpu_torch/csrc/swin_block.cu",
+                       "replaces": "pregen_pde_tpu/ops/swin_block.py:460",
+                       "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+                       "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": None}
+
+    # -- 19. one scOT-B train step, kernels against the plain route ------------------------------
+    model = seeded_scot("scot-B", 128, seed=0).to(dev).train()
+    x, t, y = rn(16, 128, 128, 7), torch.rand(16, generator=gen, device=dev), rn(16, 128, 128, 3)
+    res = {}
+
+    def step(route):
+        set_route(model, route)
+        model.set_dropout_generator(torch.Generator(device=dev).manual_seed(7))
+        model.zero_grad(set_to_none=True)
+        loss = relative_lp_loss(model(x, t).float(), y)
+        loss.backward()
+        return loss.detach()
+
+    for route in ("auto", "plain"):
+        sb.reset_launches()
+        wa.reset_launches()
+        loss = step(route)
+        torch.cuda.synchronize()
+        launches = (sb.launches, sb.bwd_launches, wa.launches, wa.bwd_launches)
+        grads = {name: p.grad.clone() for name, p in model.named_parameters()}
+        res[route] = (float(loss), grads, launches, event_ms(lambda: step(route), 3))
+    # stages 0-2 hold 16 layers each (16 x 32², 16², 8² tokens), stage 3 16
+    k3_bwd_step = 16 * sum(sb.bwd_kernels_per_call(16 * s * s) for s in (32, 16, 8))
+    want = (48 * sb.KERNELS_PER_CALL, k3_bwd_step, 16, 16 * wa.BWD_KERNELS_PER_CALL)
+    if res["auto"][2] != want or res["plain"][2] != (0, 0, 0, 0):
+        fail(f"scOT-B train step launches (K3, K3 bwd, K4, K4 bwd): auto {res['auto'][2]}, "
+             f"want {want}; plain {res['plain'][2]}, want zeros")
+    loss_rel = abs(res["auto"][0] - res["plain"][0]) / abs(res["plain"][0])
+    gerrs = {name: rel_l2(g, res["plain"][1][name]) for name, g in res["auto"][1].items()}
+    gworst = max(gerrs, key=gerrs.get)
+    finite = all(torch.isfinite(g).all() for g in res["auto"][1].values())
+    say(f"[19] scOT-B train step 128², B=16, drop-path on, one generator state: loss kernels "
+        f"{res['auto'][0]:.7f} vs plain {res['plain'][0]:.7f} (rel {loss_rel:.3e}, bar "
+        f"{STEP_LOSS_RTOL:.0e}); gradients of {len(gerrs)} parameters, worst {gworst} rel L2 "
+        f"{gerrs[gworst]:.3e} (bar {STEP_GRAD_BAR:.1e}), median "
+        f"{float(np.median(list(gerrs.values()))):.3e}; launches of one step (K3, K3 bwd, K4, "
+        f"K4 bwd) {res['auto'][2]}; forward+backward kernels {res['auto'][3]:.1f} ms | plain "
+        f"{res['plain'][3]:.1f} ms | {card}")
+    if not (finite and loss_rel <= STEP_LOSS_RTOL and gerrs[gworst] <= STEP_GRAD_BAR):
+        fail(f"scOT-B train step, kernels vs plain: loss rel {loss_rel:.3e}, worst gradient "
+             f"{gworst} {gerrs[gworst]:.3e}, finite {finite}")
+    del model, res
+
+    # -- 20. the train main path through the CLI, then evaluate of its best.pt ---------------------
+    work = tempfile.mkdtemp(prefix="smoke_train_", dir=build.BUILD_DIR)
+    try:
+        hard = os.path.join(work, "fpo_multi_hole.npy")
+        np.save(hard, fpo)
+        ckpt = os.path.join(work, "ckpt")
+        cmd = [sys.executable, "-m", "pregen_pde_tpu_torch", "train", "--model", "scot-B",
+               "--data", hard, "--epochs", "1", "--batch-size", "16", "--ckpt", ckpt]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"train rc {r.returncode}:\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        lines = [json.loads(l) for l in r.stdout.splitlines() if l.startswith("{")]
+        counts = [l["kernel_launches"] for l in lines if "kernel_launches" in l]
+        epochs = [l for l in lines if "epoch" in l]
+        best = [l for l in lines if "best_mean_val_rel_%" in l]
+        if len(counts) != 1 or len(epochs) != 1 or len(best) != 1:
+            fail(f"train printed no launch, epoch or best line:\n{r.stdout[-2000:]}")
+        counts, rec = counts[0], epochs[0]
+        # 26 train trajectories × 20 one-step pairs = 520 samples: 32 steps;
+        # 3 val trajectories: 60 samples, 3 batches (drop_last, as in JAX)
+        steps, val_batches = 32, 3
+        want = {sb.LIB_NAME: (steps + val_batches) * 48 * sb.KERNELS_PER_CALL,
+                f"{sb.LIB_NAME}_bwd": steps * k3_bwd_step,
+                wa.LIB_NAME: (steps + val_batches) * 16,
+                f"{wa.LIB_NAME}_bwd": steps * 16 * wa.BWD_KERNELS_PER_CALL}
+        if counts != want:
+            fail(f"train launches {counts}, want {want}")
+        numbers = [rec["train_loss"], rec["val_mean_rel_%"], rec["val_median_rel_%"],
+                   best[0]["best_mean_val_rel_%"]]
+        if not np.isfinite(numbers).all():
+            fail(f"train printed non-finite numbers: {rec}")
+        if not os.path.isfile(os.path.join(ckpt, "best.pt")):
+            fail("train --ckpt wrote no best.pt")
+        say(f"[20] train --model scot-B --data fpo_multi_hole (32 traj, 21 frames, 128²) --epochs 1 "
+            f"--batch-size 16: {wall:.2f} s wall incl. start-up and the best.pt write; "
+            f"{steps} steps in {rec['time_s']:.2f} s ({rec['time_s'] / steps * 1e3:.1f} ms a step "
+            f"with the loader); train loss {rec['train_loss']:.5f}, val mean "
+            f"{rec['val_mean_rel_%']:.4f} %; launches {counts} | {card}")
+        cmd = [sys.executable, "-m", "pregen_pde_tpu_torch", "evaluate", "--model", "scot-B",
+               "--data", hard, "--ckpt", os.path.join(ckpt, "best.pt"), "--batch-size", "16"]
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            fail(f"evaluate of best.pt rc {r.returncode}:\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        results = [json.loads(l) for l in r.stdout.splitlines() if l.startswith('{"patterns"')]
+        if len(results) != 1 or not np.isfinite(flat_numbers(results[0])).all():
+            fail(f"evaluate of best.pt: no finite result:\n{r.stdout[-2000:]}")
+        say(f"[20] evaluate --ckpt best.pt: [7] median rel "
+            f"{results[0]['patterns']['[7]']['median_rel_%']:.4f} %, all "
+            f"{flat_numbers(results[0]).size} numbers finite")
+        k3_line["launches"] = counts[f"{sb.LIB_NAME}_bwd"]
+        k4_line["launches"] = counts[f"{wa.LIB_NAME}_bwd"]
+
+        # -- 21. mix-sweep through the CLI: hard fpo_multi_hole, easy fpo_regular ----------------
+        easy = os.path.join(work, "fpo_regular")
+        cmd = [sys.executable, "-m", "pregen_pde_tpu_torch", "generate", "--workload",
+               "fpo_regular", "--n", "16", "--resolution", "128", "--batch-size", "16",
+               "--time-scale", "0.1", "--out", easy]
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            fail(f"generate fpo_regular rc {r.returncode}:\n{r.stderr[-4000:]}")
+        from pregen_pde_tpu_torch.datagen.writer import load_shards
+
+        easy_npy = os.path.join(work, "fpo_regular.npy")
+        np.save(easy_npy, load_shards(easy))
+        cmd = [sys.executable, "-m", "pregen_pde_tpu_torch", "mix-sweep", "--model", "scot-B",
+               "--hard", hard, "--easy", easy_npy, "--alphas", "0.5", "--total-trajectories",
+               "16", "--epochs", "1", "--batch-size", "16"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"mix-sweep rc {r.returncode}:\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        lines = [json.loads(l) for l in r.stdout.splitlines() if l.startswith("{")]
+        alpha = [l for l in lines if l.get("alpha") == 0.5]
+        counts = [l["kernel_launches"] for l in lines if "kernel_launches" in l]
+        if len(alpha) != 1 or lines[-1].keys() != {"0.5"} or len(counts) != 1:
+            fail(f"mix-sweep output malformed:\n{r.stdout[-2000:]}")
+        split_numbers = [v for s in ("test_hard", "test_easy") for v in alpha[0][s].values()]
+        if not (np.isfinite(split_numbers).all() and all(v > 0 for v in counts[0].values())):
+            fail(f"mix-sweep: non-finite test numbers or a kernel never launched: {lines}")
+        say(f"[21] mix-sweep --model scot-B --alphas 0.5 --total-trajectories 16 --epochs 1 (hard "
+            f"fpo_multi_hole, easy fpo_regular 16 traj at time-scale 0.1): {wall:.2f} s wall; "
+            f"test_hard mean {alpha[0]['test_hard']['mean_rel_%']:.4f} %, test_easy mean "
+            f"{alpha[0]['test_easy']['mean_rel_%']:.4f} %; launches {counts[0]} | {card}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return k3_line, k4_line
 
 

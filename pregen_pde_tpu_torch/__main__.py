@@ -4,6 +4,8 @@
     python -m pregen_pde_tpu_torch generate --workload fpo_multi_hole --n 128 \
         --time-scale 1.0 --out dir/
     python -m pregen_pde_tpu_torch evaluate --model scot-B --data d.npy --ckpt w.npz
+    python -m pregen_pde_tpu_torch train --model scot-B --data d.npy --ckpt dir/
+    python -m pregen_pde_tpu_torch mix-sweep --model scot-B --hard h.npy --easy e.npy
 
 ``generate``: the same flags as ``python -m pregen_pde_tpu generate`` for the
 spectral-NS workload and the four masked-geometry workloads (fpo_regular,
@@ -19,8 +21,24 @@ patterns and the accumulation error on the test split, printed as the same
 K4 launch counts. ``--ckpt`` is an ``.npz`` of the flax parameter tree
 flattened with ``/`` or a ``.pt`` state_dict of the port.
 
-Both take ``--device`` (default ``cuda``; raises when CUDA is asked for and
-absent; ``cpu`` runs the plain versions of the kernels).
+``train``: the contract-npy form of ``python -m pregen_pde_tpu train`` for
+scOT: the time-pair split and transition grammar, the trainer with the
+JAX defaults (and the scOT learning-rate tiers with ``--lr-embedding`` /
+``--lr-time-embedding``), the loader with seed 0, ``fit`` with a val
+loader. Prints the K3/K4 forward and backward launch counts, then one JSON
+record per epoch and ``{"best_mean_val_rel_%": ...}``. ``--ckpt DIR`` writes
+the best parameters as ``DIR/best.pt`` (a state_dict that ``evaluate
+--ckpt`` reads); ``--resume`` loads it before training (parameters only,
+the epochs restart).
+
+``mix-sweep``: ``python -m pregen_pde_tpu mix-sweep`` for scOT: per α a
+hard/easy mix, a fresh model, ``fit`` with hard and easy val loaders, the
+best parameters, then the hard and easy test splits; one JSON line per α
+and the results.
+
+All take ``--device`` (default ``cuda``; raises when CUDA is asked for and
+absent; ``cpu`` runs the plain versions of the kernels). What the training
+slice does not port yet raises ``SystemExit`` naming it (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -131,6 +149,17 @@ def _cmd_generate(args):
           flush=True)
 
 
+def _scot_size(name: str) -> str:
+    """The scOT size letter of ``--model``; other families raise."""
+    from pregen_pde_tpu_torch.models.scot import MODEL_SIZES
+
+    size = name.split("-")[1].upper() if "-" in name else "T"
+    if not name.startswith("scot") or size not in MODEL_SIZES:
+        raise SystemExit(f"model {name!r} is not ported (the other model families are a later "
+                         f"slice); the port takes scot or scot-{{{','.join(MODEL_SIZES)}}}")
+    return size
+
+
 def _make_model(name: str, in_size: int, in_channels: int = 7, out_channels: int = 3,
                 impl: str = "auto"):
     """scOT from dataset-derived dims (``_make_model`` of the JAX CLI); the
@@ -138,10 +167,7 @@ def _make_model(name: str, in_size: int, in_channels: int = 7, out_channels: int
     lowerings (``models/scot.py``): "auto" is the kernels on a CUDA device."""
     from pregen_pde_tpu_torch.models.scot import MODEL_SIZES, ScOT, ScOTConfig
 
-    size = name.split("-")[1].upper() if "-" in name else "T"
-    if not name.startswith("scot") or size not in MODEL_SIZES:
-        raise SystemExit(f"model {name!r} is not ported; evaluate takes scot or "
-                         f"scot-{{{','.join(MODEL_SIZES)}}}")
+    size = _scot_size(name)
     return ScOT(ScOTConfig(image_size=in_size, num_channels=in_channels,
                            num_out_channels=out_channels, attention_impl=impl, block_impl=impl,
                            **MODEL_SIZES[size]))
@@ -209,6 +235,152 @@ def _cmd_evaluate(args):
     print(json.dumps(res), flush=True)
 
 
+def _kernel_launches() -> dict:
+    from pregen_pde_tpu_torch.ops import swin_block, window_attention
+
+    return {swin_block.LIB_NAME: swin_block.launches,
+            f"{swin_block.LIB_NAME}_bwd": swin_block.bwd_launches,
+            window_attention.LIB_NAME: window_attention.launches,
+            f"{window_attention.LIB_NAME}_bwd": window_attention.bwd_launches}
+
+
+def _reset_kernel_launches() -> None:
+    from pregen_pde_tpu_torch.ops import swin_block, window_attention
+
+    swin_block.reset_launches()
+    window_attention.reset_launches()
+
+
+def _refuse_unported_train(args) -> None:
+    """What the training slice does not port yet raises, naming the slice."""
+    import os
+
+    later = [
+        (args.dataset or args.data_dir or args.num_trajectories is not None
+         or (args.data and ":" in args.data and not os.path.exists(args.data)),
+         "training on the benchmark datasets (--dataset/--data-dir, --data <name>:<path>, "
+         "--num-trajectories) is a later slice; pass a contract .npy with --data"),
+        (args.ar_steps is not None or args.teacher_forcing or args.ar_final_label_only,
+         "AR-rollout training (--ar-steps, --teacher-forcing, --ar-final-label-only; "
+         "training/ar.py) is a later slice"),
+        (args.device_resident, "--device-resident (training/device_data.py) is a later slice"),
+        (args.compute_dtype == "bfloat16",
+         "--compute-dtype bfloat16 waits for a tested bf16 K3 backward (a later slice); "
+         "float32 is the default"),
+        (args.zero_stage is not None or args.remat,
+         "--zero-stage and --remat are a later slice"),
+    ]
+    for bad, why in later:
+        if bad:
+            raise SystemExit(why)
+    if args.data is None:
+        raise SystemExit("train needs --data <contract.npy>")
+    _scot_size(args.model)
+
+
+def _build_trainer(args, model, device, ckpt=None):
+    """Trainer with the scOT learning-rate tiers when they are asked for
+    (``_build_trainer`` of the JAX CLI)."""
+    from pregen_pde_tpu_torch.training.tiers import SCOT_TIER_DECAY, scot_main_tiers, scot_tier_of
+    from pregen_pde_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    lr_emb = getattr(args, "lr_embedding", None)
+    lr_time = getattr(args, "lr_time_embedding", None)
+    tiered = lr_emb is not None or lr_time is not None
+    cfg = TrainerConfig(learning_rate=args.lr, epochs=args.epochs, batch_size=args.batch_size,
+                        ckpt_dir=ckpt, warmup_frac=getattr(args, "warmup", 0.0) or 0.0,
+                        lr_tiers=scot_main_tiers(args.lr, lr_emb, lr_time) if tiered else None)
+    return Trainer(model, cfg, tier_fn=scot_tier_of if tiered else None,
+                   tier_decay=SCOT_TIER_DECAY if tiered else None, device=device)
+
+
+def _seeded_model(name: str, in_size: int, **kw):
+    """The model under torch's init with seed 0 (the JAX trainer's init key)."""
+    import torch
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        return _make_model(name, in_size, **kw)
+
+
+def _cmd_train(args):
+    import torch
+
+    from pregen_pde_tpu_torch.training.datasets import BatchLoader, TimePairConfig, TimePairDataset
+    from pregen_pde_tpu_torch.utils.device import resolve_device
+
+    _refuse_unported_train(args)
+    device = resolve_device(args.device)
+    data = np.asarray(np.load(args.data, mmap_mode="r"))
+    t_steps = data.shape[1] - 1
+    # transition grammar of `TrainCNO_time_L.py:151-163`
+    allowed = {"one": [1], "one2all": None, "all": list(range(1, t_steps + 1))}[
+        args.transitions or "one"]
+    cfg = TimePairConfig(max_num_time_steps=t_steps, allowed_transitions=allowed,
+                         n_val=max(2, data.shape[0] // 10), n_test=max(2, data.shape[0] // 10))
+    train = TimePairDataset(data, cfg, "train")
+    val = TimePairDataset(data, cfg, "val", mean=train.mean, std=train.std)
+    model = _seeded_model(args.model, data.shape[2], in_channels=train.in_channels,
+                          out_channels=train.out_channels)
+    trainer = _build_trainer(args, model, device, ckpt=args.ckpt)
+    loader = BatchLoader(train, args.batch_size, seed=0)
+    if args.resume:
+        if not args.ckpt:
+            raise SystemExit("--resume requires --ckpt")
+        trainer.init_state(next(iter(loader)), steps_per_epoch=len(loader))
+        print(json.dumps({"resumed_from": args.ckpt,
+                          "ckpt_file": str(trainer.restore_latest())}), flush=True)
+    _reset_kernel_launches()
+    records = []
+    result = trainer.fit(loader, val_loaders={"val": BatchLoader(val, args.batch_size,
+                                                                  shuffle=False)},
+                         log_fn=records.append)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(json.dumps({"kernel_launches": _kernel_launches()}), flush=True)
+    for rec in records:
+        print(json.dumps(rec), flush=True)
+    print(json.dumps({"best_mean_val_rel_%": result["best_metric"]}), flush=True)
+
+
+def _cmd_mix_sweep(args):
+    import torch
+
+    from pregen_pde_tpu_torch.training.datasets import (
+        BatchLoader,
+        TimePairConfig,
+        make_mixed_datasets,
+    )
+    from pregen_pde_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from pregen_pde_tpu_torch.utils.device import resolve_device
+
+    _scot_size(args.model)  # an unported --model raises before any load
+    device = resolve_device(args.device)
+    hard = np.asarray(np.load(args.hard, mmap_mode="r"))
+    easy = np.asarray(np.load(args.easy, mmap_mode="r"))
+    t_steps = hard.shape[1] - 1
+    cfg = TimePairConfig(max_num_time_steps=t_steps, allowed_transitions=[1, 2],
+                         n_val=max(2, hard.shape[0] // 10), n_test=max(2, hard.shape[0] // 10))
+    _reset_kernel_launches()
+    results = {}
+    for alpha in [float(a) for a in args.alphas.split(",")]:
+        train, vh, ve, th, te = make_mixed_datasets(hard, easy, alpha, args.total_trajectories, cfg)
+        trainer = Trainer(_seeded_model(args.model, hard.shape[2]),
+                          TrainerConfig(learning_rate=args.lr, epochs=args.epochs,
+                                        batch_size=args.batch_size), device=device)
+        loader = lambda ds: BatchLoader(ds, args.batch_size, shuffle=False)
+        trainer.fit(BatchLoader(train, args.batch_size, seed=0),
+                    val_loaders={"val_hard": loader(vh), "val_easy": loader(ve)})
+        trainer.restore_best()
+        results[alpha] = {"test_hard": trainer.evaluate(loader(th)),
+                          "test_easy": trainer.evaluate(loader(te))}
+        print(json.dumps({"alpha": alpha, **results[alpha]}), flush=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(json.dumps({"kernel_launches": _kernel_launches()}), flush=True)
+    print(json.dumps(results), flush=True)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="pregen_pde_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -265,6 +437,54 @@ def main(argv=None):
     e.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises when CUDA is absent")
     e.set_defaults(fn=_cmd_evaluate)
+
+    t = sub.add_parser("train")
+    t.add_argument("--model", default="fno", help="scot, or scot-T/S/B/L (scot = scot-T)")
+    t.add_argument("--data", default=None, help="contract .npy path")
+    t.add_argument("--dataset", default=None, help="not ported yet (raises)")
+    t.add_argument("--data-dir", default=None, help="not ported yet (raises)")
+    t.add_argument("--num-trajectories", type=int, default=None,
+                   help="benchmark datasets only; not ported yet (raises)")
+    t.add_argument("--epochs", type=int, default=10)
+    t.add_argument("--batch-size", type=int, default=16)
+    t.add_argument("--lr", type=float, default=5e-5)
+    t.add_argument("--warmup", type=float, default=0.0,
+                   help="LR warmup fraction of total steps (warmup_ratio, scOT main path)")
+    t.add_argument("--lr-embedding", type=float, default=None,
+                   help="embedding/patch-recovery LR group (learning_rate_embedding_recovery)")
+    t.add_argument("--lr-time-embedding", type=float, default=None,
+                   help="conditional-norm time-embedding LR group (learning_rate_time_embedding)")
+    t.add_argument("--transitions", default=None, choices=["one", "one2all", "all"])
+    t.add_argument("--ckpt", default=None,
+                   help="directory; the best parameters are written to DIR/best.pt")
+    t.add_argument("--resume", action="store_true",
+                   help="load DIR/best.pt before training (parameters only)")
+    t.add_argument("--ar-steps", default=None, help="not ported yet (raises)")
+    t.add_argument("--teacher-forcing", action="store_true", help="not ported yet (raises)")
+    t.add_argument("--ar-final-label-only", action="store_true",
+                   help="not ported yet (raises)")
+    t.add_argument("--compute-dtype", default=None, choices=["bfloat16", "float32"],
+                   help="float32 only; bfloat16 is not ported yet (raises)")
+    t.add_argument("--zero-stage", type=int, default=None, choices=[1, 3],
+                   help="not ported yet (raises)")
+    t.add_argument("--remat", action="store_true", help="not ported yet (raises)")
+    t.add_argument("--device-resident", action="store_true", help="not ported yet (raises)")
+    t.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' raises when CUDA is absent")
+    t.set_defaults(fn=_cmd_train)
+
+    m = sub.add_parser("mix-sweep")
+    m.add_argument("--model", default="fno", help="scot, or scot-T/S/B/L (scot = scot-T)")
+    m.add_argument("--hard", required=True)
+    m.add_argument("--easy", required=True)
+    m.add_argument("--alphas", default="0.0,0.25,0.5,0.75,1.0")
+    m.add_argument("--total-trajectories", type=int, default=100)
+    m.add_argument("--epochs", type=int, default=10)
+    m.add_argument("--batch-size", type=int, default=16)
+    m.add_argument("--lr", type=float, default=5e-5)
+    m.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' raises when CUDA is absent")
+    m.set_defaults(fn=_cmd_mix_sweep)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -25,11 +25,20 @@
 // can split keys across a warp, use mma.sync on tensor cores, or batch
 // several heads per block.
 //
-// The kernel launches on the caller's stream, does not synchronise and
-// allocates nothing; the entry point returns cudaGetLastError().
+// Backward (replaces `_bwd_kernel`, pallas_call in `_vjp_bwd`):
+// attention_bwd.cuh's three launches (rows: dq and the score gradient ds
+// into a float32 (nb, h, n, n) scratch; cols: dk and dv; the bias gradient
+// as a fixed-order sum over the images of each window slot). It bounds like
+// the forward: about 2.5x its FLOP (the logits twice, dp, dq, dk, dv) on the
+// float32 CUDA cores, plus the scratch's round trip (50 MB at scOT-B stage 0,
+// B = 16), which stays mostly in L2 only at the smaller stages.
+//
+// The kernels launch on the caller's stream, do not synchronise and
+// allocate nothing; the entry points return cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "attention_bwd.cuh"
 #include "window_softmax.cuh"
 
 namespace {
@@ -98,6 +107,21 @@ int window_attention_fwd(const float* q, const float* k, const float* v, const f
     case 64: return launch<64>(q, k, v, bias, out, nb, h, n, nw, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Gradients of window_attention_fwd: q, k, v, o (the forward's output), do
+// (nb, h, n, hd); bias (nw, h, n, n) -> dq, dk, dv (nb, h, n, hd), dbias
+// (nw, h, n, n) summed over images. Scratch: ds (nb, h, n, n), stats
+// (nb, h, n, 2). `launched` reports the kernels enqueued (3).
+int window_attention_bwd(const float* q, const float* k, const float* v, const float* bias,
+                         const float* o, const float* dout, float* dq, float* dk, float* dv,
+                         float* dbias, float* ds, float* stats, int nb, int h, int n, int hd,
+                         int nw, void* stream, int* launched) {
+  *launched = 0;
+  const AttnGeom g{h, n, 0, 0, 1};
+  return attention_bwd<false>(hd, q, k, v, hd, o, dout, hd, bias, nw, nullptr, dq, dk, dv, ds,
+                              reinterpret_cast<float2*>(stats), nullptr, dbias, nullptr, nb, g,
+                              static_cast<cudaStream_t>(stream), launched);
 }
 
 }  // extern "C"

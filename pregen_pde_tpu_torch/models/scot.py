@@ -5,7 +5,9 @@ Modules and their parameters carry the flax names, so a flax tree maps onto
 the state_dict path for path (``models/convert.py``): Dense layers are
 ``nn.Linear`` (weight = kernelᵀ), convolutions ``nn.Conv2d`` (OIHW), the
 patch recovery an ``nn.ConvTranspose2d`` (flax's kernel flipped, axes
-swapped). Dropout and drop-path are inert at eval.
+swapped). Dropout and drop-path are inert at eval; in training drop-path
+draws from an explicit ``torch.Generator`` (``ScOT.set_dropout_generator``,
+which the trainer calls), never from torch's global generator.
 
 Dispatch of each Swin layer (``ScOTConfig.attention_impl`` / ``block_impl``):
 ``"auto"`` means the hand-written CUDA kernels on a CUDA tensor and the plain
@@ -14,7 +16,9 @@ torch chain on the CPU; ``"xla"`` (alias ``"plain"``) always the plain chain;
 kernel's plain version). A layer takes the whole-block kernel K3 when its
 width C ≤ ``MAX_FUSED_DIM`` (384), else the unfused layer with its attention
 through K4. That gate is the JAX package's (`scot.py:449-450`), carried over
-unmeasured; a later change sets it from measurements on the card.
+unmeasured; a later change sets it from measurements on the card. Both
+kernels have backward kernels, so training on a CUDA tensor runs through
+them too (a layer with active dropout takes the plain chain, as in JAX).
 """
 
 from __future__ import annotations
@@ -121,23 +125,33 @@ class CondLayerNorm(nn.Module):
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth; identity at eval or at rate 0."""
+    """Per-sample stochastic depth (the JAX ``DropPath``): in training one
+    Bernoulli(keep) draw per sample, x/keep where it keeps the sample and 0
+    elsewhere; identity at eval or at rate 0. The draws come from
+    ``generator``, which ``ScOT.set_dropout_generator`` sets."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.generator: torch.Generator | None = None
 
     def keep_mask(self, batch: int, device) -> torch.Tensor:
         """(B,) multipliers: 1 at eval, mask/keep in training."""
         if self.rate == 0.0 or not self.training:
             return torch.ones(batch, device=device)
+        if self.generator is None:
+            raise RuntimeError("drop-path in training draws from an explicit torch.Generator; "
+                               "set one with ScOT.set_dropout_generator (the Trainer does)")
         keep = 1.0 - self.rate
-        return torch.bernoulli(torch.full((batch,), keep, device=device)) / keep
+        draw = torch.bernoulli(torch.full((batch,), keep, device=device),
+                               generator=self.generator)
+        return draw / keep
 
     def forward(self, x):
         if self.rate == 0.0 or not self.training:
             return x
-        return x * self.keep_mask(x.shape[0], x.device).reshape((-1,) + (1,) * (x.ndim - 1))
+        kept = self.keep_mask(x.shape[0], x.device).reshape((-1,) + (1,) * (x.ndim - 1)) > 0
+        return torch.where(kept, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 def _cpb_table(ws: int, pretrained_window_size: int) -> np.ndarray:
@@ -483,6 +497,14 @@ class ScOT(nn.Module):
                                                  stride=p)
         self.recovery_mixup = nn.Conv2d(cfg.num_out_channels, cfg.num_out_channels, 5,
                                         padding=2, bias=False)
+
+    def set_dropout_generator(self, generator: torch.Generator | None) -> None:
+        """The generator every drop-path of the model draws from in training
+        (the fused layers' (B, 2) multipliers too, in the same order as the
+        plain chain's two draws, so both routes see the same masks)."""
+        for m in self.modules():
+            if isinstance(m, DropPath):
+                m.generator = generator
 
     def swin_layers(self):
         """(name, layer) of every Swin layer, in execution order."""

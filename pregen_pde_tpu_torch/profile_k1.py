@@ -35,8 +35,9 @@ def _card() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def _device_summary(prof, wall_s: float) -> dict:
-    """Busy time = union of the device events' intervals; per-name totals."""
+def _device_summary(prof, wall_s: float, top: int = 8) -> dict:
+    """Busy time = union of the device events' intervals; per-name totals
+    (the ``top`` names by device time)."""
     evs = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
@@ -56,12 +57,12 @@ def _device_summary(prof, wall_s: float) -> dict:
         d = by_name.setdefault(key, {"n": 0, "ms": 0.0})
         d["n"] += 1
         d["ms"] += (e.time_range.end - e.time_range.start) / 1e3
-    kernels = dict(sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:8])
+    kernels = dict(sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:top])
     return {"wall_ms": wall_s * 1e3, "busy_ms": busy_us / 1e3,
             "idle_share": 1.0 - busy_us / 1e6 / wall_s, "top": kernels}
 
 
-def _profiled(fn):
+def _profiled(fn, top: int = 8):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -70,7 +71,7 @@ def _profiled(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return out, _device_summary(prof, wall)
+    return out, _device_summary(prof, wall, top)
 
 
 def _ms_per_step(fn, short: int = 100, long: int = 300) -> float:

@@ -1,4 +1,4 @@
-"""Where the time goes: the scOT-B forward on one CUDA card.
+"""Where the time goes: the scOT-B forward and train step on one CUDA card.
 
     python -m pregen_pde_tpu_torch.profile_scot [--json out.json]
 
@@ -14,7 +14,14 @@ Printed as one line each (the card's name and power limit first) and, with
 3. the ``evaluate`` main path in-process (``_evaluate_ckpt`` on a random
    (32, 21, 128², 6) contract, seeded ``.pt`` weights, batch size 16: 3 test
    trajectories, 19 forwards): the seconds to build the model and load the
-   checkpoint, the whole evaluation's wall, and ``torch.profiler`` over it.
+   checkpoint, the whole evaluation's wall, and ``torch.profiler`` over it;
+4. the train step at batch 16 (``Trainer.train_step``: the numpy batch to
+   the card, forward, relative-L1 loss, backward, clip, AdamW), drop-path
+   on: ms per step in each route (CUDA events, 5 steps), the kernel route
+   also at batch 16, 4 and 1 in two rounds, and
+   ``torch.profiler`` over two steps of the kernel route: device busy
+   against wall, the idle share, and the device ms of the top kernels by
+   name, forward and backward.
 """
 
 from __future__ import annotations
@@ -97,6 +104,32 @@ def _evaluate_main_path(model, dev) -> dict:
             "evaluate_ckpt_s": wall, "profiled": prof}
 
 
+def _train_step_part(model, dev) -> dict:
+    from pregen_pde_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    rng = np.random.default_rng(2)
+    batch = {"input": rng.normal(size=(16, 128, 128, 7)).astype(np.float32),
+             "time": rng.uniform(0.05, 1.0, 16).astype(np.float32),
+             "label": rng.normal(size=(16, 128, 128, 3)).astype(np.float32)}
+    trainer = Trainer(model, TrainerConfig(epochs=1), device=dev)
+    trainer.init_state(steps_per_epoch=100)
+    out: dict = {}
+    for route in ROUTES:
+        set_route(model, route)
+        out[f"{route}_ms"] = event_ms(lambda: trainer.train_step(batch))
+    set_route(model, "auto")
+    # the kernel route against batch, two rounds in turn: host-clock noise
+    # shows as the spread between rounds
+    out["auto_ms_by_batch"] = {b: [] for b in (16, 4, 1)}
+    for _ in range(2):
+        for b, times in out["auto_ms_by_batch"].items():
+            part = {k: v[:b] for k, v in batch.items()}
+            times.append(event_ms(lambda: trainer.train_step(part)))
+    _, out["auto_profiled"] = _profiled(lambda: [trainer.train_step(batch) for _ in range(2)],
+                                        top=20)
+    return out
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(prog="pregen_pde_tpu_torch.profile_scot")
     p.add_argument("--json", help="write the full results here")
@@ -124,6 +157,9 @@ def main(argv=None) -> dict:
         print(f"scOT-B 128^2 B={batch} one forward: {json.dumps(out)} | {card}", flush=True)
     res["evaluate"] = _evaluate_main_path(model, dev)
     print(f"evaluate main path (in-process): {json.dumps(res['evaluate'])} | {card}", flush=True)
+    res["train_step_B16"] = _train_step_part(model, dev)
+    print(f"scOT-B 128^2 B=16 train step: {json.dumps(res['train_step_B16'])} | {card}",
+          flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(res, f, indent=1)

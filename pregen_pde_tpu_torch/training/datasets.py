@@ -8,9 +8,8 @@ the JAX package's ``training/datasets.py``; numpy only).
 - input = all 6 contract channels at t1 (first 3 z-scored) + optional
   constant time channel; label = z-scored [Ux, Uy, p] at t2;
 - splits are index ranges over the trajectory axis: train = [0, n),
-  val/test = the tail.
-
-The difficulty-mixing constructors wait for the training slice.
+  val/test = the tail;
+- ``make_mixed_datasets``: the difficulty mix of ``mix-sweep``.
 """
 
 from __future__ import annotations
@@ -174,6 +173,25 @@ class ConcatDataset:
                 return p[idx]
             idx -= n
         raise IndexError
+
+
+def make_mixed_datasets(hard: np.ndarray, easy: np.ndarray, alpha: float,
+                        total_trajectories: int, cfg: TimePairConfig):
+    """Difficulty-mixing construction (`CNO_timeModule_CIN.py:1021-1073`):
+    train = α·N hard ⊕ (1−α)·N easy; val and test from each tail; shared
+    stats. → (train, val_hard, val_easy, test_hard, test_easy)."""
+    n_hard = int(round(alpha * total_trajectories))
+    n_easy = total_trajectories - n_hard
+    mean, std = compute_stats([hard, easy])
+    kw = dict(mean=mean, std=std)
+    parts = []
+    if n_hard > 0:
+        parts.append(TimePairDataset(hard, cfg, "train", n_hard, **kw))
+    if n_easy > 0:
+        parts.append(TimePairDataset(easy, cfg, "train", n_easy, **kw))
+    train = ConcatDataset(parts)
+    return (train, TimePairDataset(hard, cfg, "val", **kw), TimePairDataset(easy, cfg, "val", **kw),
+            TimePairDataset(hard, cfg, "test", **kw), TimePairDataset(easy, cfg, "test", **kw))
 
 
 class Subset:

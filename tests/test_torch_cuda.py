@@ -103,6 +103,10 @@ def test_k2_launch_count():
 # bars, 30x the differences measured when both are right (NVIDIA H100)
 K4_VS_PLAIN_BAR = 1.5e-5
 K3_VS_PLAIN_BAR = 2e-5
+K4_BWD_VS_PLAIN_BAR = 2e-5
+K3_BWD_VS_PLAIN_BAR = 7.5e-5
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_BAR = 1.1e-3
 
 
 @pytest.mark.cuda
@@ -119,8 +123,14 @@ def test_k4_kernel_matches_plain(nb, h, n, hd, nw):
     got = wa.window_attention(q, k, v, bias)
     assert wa.launches == 1
     assert rel_l2(got, wa.window_attention_plain(q, k, v, bias)) <= K4_VS_PLAIN_BAR
-    with pytest.raises(NotImplementedError, match="training slice"):
-        wa.window_attention(q.requires_grad_(), k, v, bias)
+    # a gradient through the wrapper launches the backward kernels
+    ins = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    do = torch.randn(nb, h, n, hd, generator=g, device="cuda")
+    grads = torch.autograd.grad(wa.window_attention(*ins), ins, do)
+    torch.cuda.synchronize()
+    assert wa.bwd_launches == wa.BWD_KERNELS_PER_CALL
+    for a, b in zip(grads, wa.window_attention_bwd_plain(q, k, v, bias, do)):
+        assert a.shape == b.shape and rel_l2(a, b) <= K4_BWD_VS_PLAIN_BAR
 
 
 @pytest.mark.cuda
@@ -141,6 +151,72 @@ def test_k3_kernel_matches_plain(B, hw, c, heads, ws, nw):
     got = sb.fused_swin_block(*args, heads, ws, 1e-5)
     assert sb.launches == sb.KERNELS_PER_CALL
     assert rel_l2(got, sb.swin_block_plain(*args, heads, ws, 1e-5)) <= K3_VS_PLAIN_BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,hw,c,heads,ws,nw", [(16, 32, 96, 3, 16, 4), (16, 16, 192, 6, 16, 1),
+                                                (16, 8, 384, 12, 8, 1), (2, 8, 16, 2, 4, 4)])
+def test_k3_backward_kernel_matches_plain(B, hw, c, heads, ws, nw):
+    """All 19 cotangents of the K3 backward kernel against its plain
+    version, through the autograd of ``fused_swin_block``, with the exact
+    kernel count (split-K sums where the tokens exceed SPLIT_ROWS)."""
+    _need_cuda()
+    from pregen_pde_tpu_torch.ops import swin_block as sb
+
+    g = torch.Generator(device="cuda").manual_seed(c + 1)
+    rn = lambda *s: 0.1 * torch.randn(*s, generator=g, device="cuda")
+    n, hd = ws * ws, c // heads
+    args = (10 * rn(B, hw, hw, c), 30 * rn(nw, heads, n, n), 1 + 9 * torch.rand(heads, device="cuda"),
+            rn(heads, c, hd), rn(heads, 1, hd), rn(heads, c, hd), rn(heads, c, hd), rn(heads, 1, hd),
+            rn(heads, hd, c), rn(1, c), rn(B, c) + 1, rn(B, c), rn(c, 4 * c), rn(1, 4 * c),
+            rn(4 * c, c), rn(1, c), rn(B, c) + 1, rn(B, c), 1 + rn(B, 2))
+    dy = 10 * rn(B, hw, hw, c)
+    ins = [a.clone().requires_grad_() for a in args]
+    sb.reset_launches()
+    got = torch.autograd.grad(sb.fused_swin_block(*ins, heads, ws, 1e-5), ins, dy)
+    torch.cuda.synchronize()
+    assert (sb.launches, sb.bwd_launches) == (sb.KERNELS_PER_CALL,
+                                              sb.bwd_kernels_per_call(B * hw * hw))
+    ref = sb.swin_block_bwd_plain(*args, dy, heads, ws, 1e-5)
+    for name, a, b in zip(sb.COTANGENTS, got, ref):
+        assert a.shape == b.shape and rel_l2(a, b) <= K3_BWD_VS_PLAIN_BAR, name
+
+
+@pytest.mark.cuda
+def test_scot_b_train_step_kernels_match_plain():
+    """One scOT-B train step (128², batch 4, drop-path on, one generator
+    state in both routes): the loss and every parameter's gradient through
+    the kernels against the plain route, with the exact launches."""
+    _need_cuda()
+    from pregen_pde_tpu_torch.ops import swin_block as sb
+    from pregen_pde_tpu_torch.ops import window_attention as wa
+    from pregen_pde_tpu_torch.profile_scot import seeded_scot, set_route
+    from pregen_pde_tpu_torch.training.losses import relative_lp_loss
+
+    model = seeded_scot("scot-B", 128).cuda().train()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x, y = (torch.randn(4, 128, 128, c, generator=g, device="cuda") for c in (7, 3))
+    t = torch.rand(4, generator=g, device="cuda")
+    out = {}
+    for route in ("auto", "plain"):
+        set_route(model, route)
+        model.set_dropout_generator(torch.Generator(device="cuda").manual_seed(2))
+        model.zero_grad(set_to_none=True)
+        sb.reset_launches()
+        wa.reset_launches()
+        loss = relative_lp_loss(model(x, t).float(), y)
+        loss.backward()
+        loss = loss.detach()
+        torch.cuda.synchronize()
+        out[route] = (loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()},
+                      (sb.launches, sb.bwd_launches, wa.launches, wa.bwd_launches))
+    assert out["plain"][2] == (0, 0, 0, 0)
+    # 16 layers each at stages 0-2 (4 x 32², 16², 8² tokens), 16 at stage 3
+    k3_bwd = 16 * sum(sb.bwd_kernels_per_call(4 * s * s) for s in (32, 16, 8))
+    assert out["auto"][2] == (48 * sb.KERNELS_PER_CALL, k3_bwd, 16, 16 * wa.BWD_KERNELS_PER_CALL)
+    assert abs(out["auto"][0] - out["plain"][0]) <= STEP_LOSS_RTOL * abs(out["plain"][0])
+    for name, grad in out["auto"][1].items():
+        assert rel_l2(grad, out["plain"][1][name]) <= STEP_GRAD_BAR, name
 
 
 @pytest.mark.cuda
