@@ -101,6 +101,31 @@ Phases (any failure exits nonzero; no phase catches a failure):
     shard, easy = 16 ``fpo_regular`` trajectories generated here: finite
     numbers for both test splits, every kernel launched.
 
+22. K5a (the periodic Laplacian) and K5b (the fused Heun heat step) are
+    built in phase 2 beside the others; their build seconds are printed;
+23. K5a and K5b against their plain versions at (B=32, 128²), (B=4, 256²)
+    and the ragged (B=3, 130²) on GRF fields, K5b with reaction 0 and 1:
+    K5a relative L2 ≤ 1e-7, K5b's increment (the step minus u) ≤ 7e-5; the
+    heat trajectory at B=32, 128² through ``HeatSolver(impl="fused")`` (20
+    × 500 steps) and ``impl="laplacian"`` (20 × 50) against ``impl="plain"``,
+    per snapshot ≤ 3.5e-6, with the exact stencil launches of each (one a
+    step, two a step); K5a, K5b, their plain versions and a circular
+    ``nn.Conv2d`` with the 5-point weights (K5a's yardstick, TF32 off)
+    timed by CUDA graph replay (device time, without the host's enqueue);
+    K5a's launches in the kernels line are those of the laplacian route's
+    run, its path (JAX's ``use_pallas=True``); K5b's those of phase 24;
+24. the heat main path: ``generate --workload heat --n 32 --resolution 128
+    --batch-size 32`` in a subprocess: a finite (32, 21, 128, 128) shard,
+    exactly 10,000 K5b launches and no other kernel's, every trajectory's
+    mean within 3e-4 of its initial rms, its variance falling at every
+    snapshot;
+25. ``generate --workload burgers --n 32 --resolution 1024`` and ``--workload
+    darcy --n 32 --resolution 128`` (plain PyTorch on the card, as the JAX
+    package runs them outside any kernel): finite (32, 21, 1024) and (32, 2,
+    128, 128) shards, a > 0 and u ≥ 0, and the card's float32 u of two
+    trajectories against a float64 CPU solve of the same a, relative L2
+    ≤ 2e-5.
+
 The 1e-5 bar of K1 against the plain float32 version is about 30× what the
 two differ by when both are right (2.4e-7 vorticity, 3.6e-7 fields at the
 north star, NVIDIA H100): a kernel error of its own of 1e-5 fails it. The
@@ -113,7 +138,12 @@ NVIDIA H100); the evaluate bar leaves ~100× over 9.3e-7 for the 7-step
 rollouts. The backward bars are about 30× the worst differences of the
 first run of phases 17–19 (K3 2.5e-6, one train step's gradients 3.6e-5 at
 a logit scale, median 2.3e-7; K4's 2e-5 is ~60× its 3.3e-7; NVIDIA H100);
-the loss agreed to the bit, and its bar is 30× the forward's 3e-7. Each kernel's ``bound_ms`` is the larger of its bytes (inputs read
+the loss agreed to the bit, and its bar is 30× the forward's 3e-7. K5a
+agreed with its plain version to the bit (the same float32 operations, none
+contractible), so its bar is a float32 ulp; K5b's and the heat routes' bars
+are about 30× their first run's worst (2.2e-6 increment; 1.1e-7 fused, 7.0e-8
+laplacian route), the mean drift's 30× 9.3e-6 and Darcy's 30× 5.8e-7 (NVIDIA
+H100). Each kernel's ``bound_ms`` is the larger of its bytes (inputs read
 once, outputs written once) over 3.35 TB/s and its float32 operations over
 67 TFLOP/s, computed from the shapes of the call that is timed.
 
@@ -147,6 +177,11 @@ K4_BWD_VS_PLAIN_BAR = 2e-5
 K3_BWD_VS_PLAIN_BAR = 7.5e-5
 STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_BAR = 1.1e-3
+K5A_VS_PLAIN_BAR = 1e-7
+K5B_VS_PLAIN_BAR = 7e-5
+HEAT_ROUTE_VS_PLAIN_BAR = 3.5e-6
+HEAT_MEAN_DRIFT_BAR = 3e-4
+DARCY_F32_VS_F64_BAR = 2e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 
@@ -225,7 +260,9 @@ def main() -> None:
     from pregen_pde_tpu_torch.ops import swin_block as sb
     from pregen_pde_tpu_torch.ops import window_attention as wa
 
-    names = (snc.LIB_NAME, npc.LIB_NAME, sb.LIB_NAME, wa.LIB_NAME)
+    from pregen_pde_tpu_torch.ops import stencil
+
+    names = (snc.LIB_NAME, npc.LIB_NAME, sb.LIB_NAME, wa.LIB_NAME, stencil.LIB_NAME)
     pool = ThreadPoolExecutor(max_workers=len(names))
     builds = {name: pool.submit(build.build, name) for name in names}
     builds[snc.LIB_NAME].result()
@@ -387,9 +424,12 @@ def main() -> None:
     }
     k2_line, fpo = k2_phases(dev, card, builds[npc.LIB_NAME], t0_build)
     k3_line, k4_line = scot_phases(dev, card, builds, t0_build, fpo)
-    pool.shutdown()
     k3_bwd_line, k4_bwd_line = train_phases(dev, card, fpo)
-    say(json.dumps({"kernels": [k1_line, k2_line, k3_line, k4_line, k3_bwd_line, k4_bwd_line]}))
+    k5a_line, k5b_line = heat_phases(dev, card, builds[stencil.LIB_NAME], t0_build)
+    pool.shutdown()
+    simple_phases(card)
+    say(json.dumps({"kernels": [k1_line, k2_line, k3_line, k4_line, k3_bwd_line, k4_bwd_line,
+                                k5a_line, k5b_line]}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
@@ -1013,6 +1053,240 @@ def train_phases(dev, card: str, fpo) -> tuple[dict, dict]:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return k3_line, k4_line
+
+
+def graph_ms(fn, reps: int = 200) -> float:
+    """Device ms a call of ``fn``: ``reps`` calls captured in one CUDA graph
+    and replayed, so the host's enqueue time (which exceeds a microsecond
+    kernel's) is not counted. Timing only; the port runs no graph."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # warm-up outside the capture: allocator, cuDNN plans
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(3):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (3 * reps)
+
+
+def heat_phases(dev, card: str, stencil_build, t0_build: float) -> tuple[dict, dict]:
+    """Phases 22-24: K5a and K5b against their plain versions, the heat
+    routes, and the heat main path. → K5a's and K5b's entries of the
+    kernels line."""
+    import numpy as np
+    import torch
+
+    from pregen_pde_tpu_torch.core import SpectralGrid2D
+    from pregen_pde_tpu_torch.datagen.writer import load_shards
+    from pregen_pde_tpu_torch.fields.grf import grf_2d
+    from pregen_pde_tpu_torch.kernels import build
+    from pregen_pde_tpu_torch.ops import stencil as st
+    from pregen_pde_tpu_torch.solvers.heat import HeatConfig, HeatSolver
+    from pregen_pde_tpu_torch.utils.parity import per_snapshot_rel_l2, rel_l2
+
+    # -- 22. the stencil library's build (started in phase 2) -----------------------------------
+    stencil_build.result()
+    build.load(st.LIB_NAME)
+    say(f"[22] built {st.LIB_NAME} (sm_90a): done {time.perf_counter() - t0_build:.2f} s after "
+        f"the parallel builds started (nvcc {build.build_seconds[st.LIB_NAME]:.2f} s)")
+
+    # -- 23. K5a and K5b against their plain versions; the heat routes -----------------------------
+    gen = torch.Generator(device=dev).manual_seed(5)
+    D, dt = HeatConfig.diffusivity, HeatConfig.dt
+    k5a_err = k5b_err = None
+    for B, n in ((32, 128), (4, 256), (3, 130)):
+        u = grf_2d(gen, SpectralGrid2D(n), B)  # the heat main path's initial fields
+        dx = 1.0 / n
+        got, ref = st.laplacian_cuda(u, dx), st.laplacian(u, dx)
+        err = rel_l2(got, ref)
+        max_abs = float((got - ref).abs().max())
+        if not (torch.isfinite(got).all() and err <= K5A_VS_PLAIN_BAR):
+            fail(f"K5a vs plain (B={B}, {n}^2): rel L2 {err:.3e} > {K5A_VS_PLAIN_BAR:.1e}")
+        if k5a_err is None:
+            k5a_err = max_abs
+        say(f"[23] K5a B={B} {n}^2: rel L2 vs plain {err:.3e} (bar {K5A_VS_PLAIN_BAR:.1e}), "
+            f"max abs {max_abs:.3e} of max |lap| {float(ref.abs().max()):.3e}")
+        for react in (0.0, 1.0):
+            got, ref = st.heat_step_cuda(u, dx, D, dt, react), st.heat_step(u, dx, D, dt, react)
+            err = rel_l2(got - u, ref - u)  # the step's increment, not the field it moves
+            max_abs = float((got - ref).abs().max())
+            if not (torch.isfinite(got).all() and err <= K5B_VS_PLAIN_BAR):
+                fail(f"K5b vs plain (B={B}, {n}^2, k={react}): increment rel L2 {err:.3e} > "
+                     f"{K5B_VS_PLAIN_BAR:.1e}")
+            if k5b_err is None:
+                k5b_err = max_abs
+            say(f"[23] K5b B={B} {n}^2 k={react}: increment rel L2 vs plain {err:.3e} (bar "
+                f"{K5B_VS_PLAIN_BAR:.1e}), max abs {max_abs:.3e}")
+
+    # the heat routes at the main path's shape: fused (K5b) and laplacian (K5a) vs plain
+    u0 = grf_2d(gen, SpectralGrid2D(128), 32)
+    runs = {}
+    for impl, t_end in (("fused", 1.0), ("plain", 1.0), ("laplacian", 0.1), ("plain", 0.1)):
+        sol = HeatSolver(HeatConfig(resolution=128, t_end=t_end), impl=impl)
+        st.reset_launches()
+        t0 = time.perf_counter()
+        runs[impl, t_end] = sol.make_batched_trajectory_fn()(u0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        S, inner = sol.steps()
+        expect = {"fused": S * inner, "laplacian": 2 * S * inner, "plain": 0}[impl]
+        if st.launches != expect:
+            fail(f"heat route {impl}: {st.launches} stencil launches, expected {expect}")
+        if impl == "laplacian":
+            k5a_launches = st.launches
+        say(f"[23] HeatSolver(impl={impl!r}) B=32 128^2 {S} x {inner} steps: {secs:.3f} s, "
+            f"{st.launches} stencil launches")
+    for impl, t_end in (("fused", 1.0), ("laplacian", 0.1)):
+        got, ref = runs[impl, t_end], runs["plain", t_end]
+        if not torch.isfinite(got).all():
+            fail(f"heat route {impl}: non-finite output")
+        err = per_snapshot_rel_l2(got, ref)
+        if not err.max() <= HEAT_ROUTE_VS_PLAIN_BAR:
+            fail(f"heat route {impl} vs plain: worst snapshot {err.max():.3e} > "
+                 f"{HEAT_ROUTE_VS_PLAIN_BAR:.1e} (per snapshot: {err.tolist()})")
+        say(f"[23] heat route {impl} vs plain f32, per-snapshot rel L2 first / mid / last "
+            f"{err[1]:.3e} / {err[10]:.3e} / {err[20]:.3e}, worst {err.max():.3e} (bar "
+            f"{HEAT_ROUTE_VS_PLAIN_BAR:.1e})")
+
+    # times at the main path's shape (B = 32, 128^2): device time by CUDA graph
+    # replay; eager wall per call beside it
+    from pregen_pde_tpu_torch.profile_scot import event_ms
+
+    u, dx = u0, 1.0 / 128
+    conv = torch.nn.Conv2d(1, 1, 3, padding=1, padding_mode="circular", bias=False).to(dev)
+    with torch.no_grad():
+        conv.weight.copy_(torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]],
+                                       device=dev) / (dx * dx))
+    with torch.no_grad():
+        lib_err = rel_l2(conv(u[:, None])[:, 0], st.laplacian(u, dx))
+        t = {"k5a": graph_ms(lambda: st.laplacian_cuda(u, dx)),
+             "k5a_plain": graph_ms(lambda: st.laplacian(u, dx)),
+             "conv": graph_ms(lambda: conv(u[:, None])),
+             "k5b": graph_ms(lambda: st.heat_step_cuda(u, dx, D, dt)),
+             "k5b_plain": graph_ms(lambda: st.heat_step(u, dx, D, dt)),
+             "k5b_eager": event_ms(lambda: st.heat_step_cuda(u, dx, D, dt), 200),
+             "k5b_advance": event_ms(lambda: st.heat_advance(u, 500, dx, D, dt), 5) / 500,
+             "k5a_eager": event_ms(lambda: st.laplacian_cuda(u, dx), 200)}
+    nbytes = 2 * 4 * u.numel()  # u read once, the result written once
+    a_ms, a_by = bound(nbytes, 6.0 * u.numel())
+    # K5b at k = 0: two rhs (6 FLOP of the stencil, 1 of D), u1 (2), the update (3)
+    b_ms, b_by = bound(nbytes, 19.0 * u.numel())
+    say(f"[23] K5a B=32 128^2: {t['k5a']:.5f} ms (eager {t['k5a_eager']:.5f}) | plain "
+        f"{t['k5a_plain']:.5f} ms | circular Conv2d {t['conv']:.5f} ms (vs plain rel L2 "
+        f"{lib_err:.1e}, TF32 off) | bound {a_ms:.5f} ms ({a_by}) | {card}")
+    say(f"[23] K5b B=32 128^2 one step: {t['k5b']:.5f} ms (eager {t['k5b_eager']:.5f}; in "
+        f"heat_advance's 500-step call {t['k5b_advance']:.5f}) | plain {t['k5b_plain']:.5f} ms | "
+        f"bound {b_ms:.5f} ms ({b_by}) | {card}")
+    k5a_line = {"name": f"{st.LIB_NAME}_laplacian", "route": "cuda",
+                "source": "pregen_pde_tpu_torch/csrc/stencil.cu",
+                "replaces": "pregen_pde_tpu/ops/stencil.py:42", "launches": k5a_launches,
+                "max_abs_err": k5a_err, "ms": t["k5a"], "plain_ms": t["k5a_plain"],
+                "bound_ms": a_ms, "bound_by": a_by, "library_ms": t["conv"]}
+    k5b_line = {"name": f"{st.LIB_NAME}_heat_step", "route": "cuda",
+                "source": "pregen_pde_tpu_torch/csrc/stencil.cu",
+                "replaces": "pregen_pde_tpu/ops/stencil.py:83",
+                "max_abs_err": k5b_err, "ms": t["k5b"], "plain_ms": t["k5b_plain"],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    # -- 24. the heat main path, through the CLI -------------------------------------------------
+    work = tempfile.mkdtemp(prefix="smoke_heat_", dir=build.BUILD_DIR)
+    try:
+        out = os.path.join(work, "heat")
+        cmd = [sys.executable, "-m", "pregen_pde_tpu_torch", "generate", "--workload", "heat",
+               "--n", "32", "--resolution", "128", "--batch-size", "32", "--out", out]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"generate heat rc {r.returncode}:\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        counts = [json.loads(l)["kernel_launches"] for l in r.stdout.splitlines()
+                  if l.startswith('{"kernel_launches"')]
+        if len(counts) != 1:
+            fail(f"generate heat printed no launch line:\n{r.stdout[-2000:]}")
+        # one K5b launch a step: 20 snapshots x 500 steps for the one batch
+        if counts[0] != {"spectral_ns_step": 0, "ns_projection_step": 0, st.LIB_NAME: 10_000}:
+            fail(f"generate heat launches {counts[0]}, expected 10,000 of {st.LIB_NAME} only")
+        data = load_shards(out)
+        if data.shape != (32, 21, 128, 128) or not np.isfinite(data).all():
+            fail(f"heat shard {data.shape}, finite {np.isfinite(data).all()}")
+        d = data.astype(np.float64)
+        rms0 = np.sqrt((d[:, 0] ** 2).mean(axis=(1, 2)))
+        mean = d.mean(axis=(2, 3))
+        drift = (np.abs(mean - mean[:, :1]).max(axis=1) / rms0).max()
+        if not drift <= HEAT_MEAN_DRIFT_BAR:
+            fail(f"heat: the mean moved by {drift:.3e} of the initial rms > "
+                 f"{HEAT_MEAN_DRIFT_BAR:.1e}")
+        var = d.var(axis=(2, 3))
+        if not (np.diff(var, axis=1) < 0).all():
+            fail("heat: the spatial variance grew in some snapshot (pure diffusion, k = 0)")
+        k5b_line["launches"] = counts[0][st.LIB_NAME]
+        say(f"[24] generate --workload heat --n 32 --resolution 128 --batch-size 32: {wall:.2f} s "
+            f"wall incl. start-up, {32 / wall:.3f} traj/s; K5b launches {counts[0][st.LIB_NAME]}; "
+            f"shard {data.shape} finite; mean drift {drift:.3e} of the initial rms (bar "
+            f"{HEAT_MEAN_DRIFT_BAR:.1e}); variance falls every snapshot, last/first "
+            f"{(var[:, -1] / var[:, 0]).max():.4f} | {card}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return k5a_line, k5b_line
+
+
+def simple_phases(card: str) -> None:
+    """Phase 25: Burgers and Darcy through the CLI."""
+    import numpy as np
+    import torch
+
+    from pregen_pde_tpu_torch.datagen.writer import load_shards
+    from pregen_pde_tpu_torch.kernels import build
+    from pregen_pde_tpu_torch.solvers.darcy import DarcyConfig, solve_darcy
+    from pregen_pde_tpu_torch.utils.parity import rel_l2
+
+    work = tempfile.mkdtemp(prefix="smoke_simple_", dir=build.BUILD_DIR)
+    try:
+        shards = {}
+        for workload, res, shape in (("burgers", 1024, (32, 21, 1024)),
+                                     ("darcy", 128, (32, 2, 128, 128))):
+            out = os.path.join(work, workload)
+            cmd = [sys.executable, "-m", "pregen_pde_tpu_torch", "generate", "--workload",
+                   workload, "--n", "32", "--resolution", str(res), "--batch-size", "32",
+                   "--out", out]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+            wall = time.perf_counter() - t0
+            if r.returncode != 0:
+                fail(f"generate {workload} rc {r.returncode}:\n{r.stdout[-2000:]}\n"
+                     f"{r.stderr[-4000:]}")
+            data = shards[workload] = load_shards(out)
+            if data.shape != shape or not np.isfinite(data).all():
+                fail(f"{workload} shard {data.shape}, finite {np.isfinite(data).all()}")
+            say(f"[25] generate --workload {workload} --n 32 --resolution {res} --batch-size 32: "
+                f"{wall:.2f} s wall incl. start-up, {32 / wall:.3f} traj/s; shard {data.shape} "
+                f"finite | {card}")
+        a, u = shards["darcy"][:, 0], shards["darcy"][:, 1]
+        if not (a.min() > 0 and u.min() >= 0):
+            fail(f"darcy: a min {a.min()}, u min {u.min()} (need a > 0, u >= 0)")
+        # the card's float32 solve against a float64 solve on the CPU, same a
+        ref = solve_darcy(torch.from_numpy(a[:2].astype(np.float64)), DarcyConfig(resolution=128))
+        errs = [rel_l2(u[i], ref[i]) for i in range(2)]
+        if not max(errs) <= DARCY_F32_VS_F64_BAR:
+            fail(f"darcy: float32 u vs float64 solve rel L2 {errs} > {DARCY_F32_VS_F64_BAR:.1e}")
+        say(f"[25] darcy: a in [{a.min():.4f}, {a.max():.4f}], u in [{u.min():.3e}, "
+            f"{u.max():.5f}]; u (card, float32) vs float64 CPU solve, trajectories 0 and 1: rel "
+            f"L2 {errs[0]:.3e}, {errs[1]:.3e} (bar {DARCY_F32_VS_F64_BAR:.1e})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def flat_numbers(res: dict):

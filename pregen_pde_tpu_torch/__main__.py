@@ -3,16 +3,19 @@
     python -m pregen_pde_tpu_torch generate --workload ns_spectral --n 256 --out dir/
     python -m pregen_pde_tpu_torch generate --workload fpo_multi_hole --n 128 \
         --time-scale 1.0 --out dir/
+    python -m pregen_pde_tpu_torch generate --workload heat --n 128 --out dir/
     python -m pregen_pde_tpu_torch evaluate --model scot-B --data d.npy --ckpt w.npz
     python -m pregen_pde_tpu_torch train --model scot-B --data d.npy --ckpt dir/
     python -m pregen_pde_tpu_torch mix-sweep --model scot-B --hard h.npy --easy e.npy
 
 ``generate``: the same flags as ``python -m pregen_pde_tpu generate`` for the
-spectral-NS workload and the four masked-geometry workloads (fpo_regular,
-fpo_hole, fpo_multi_hole, ldc_regular). ``--method`` applies to ns_spectral
-only; ``--max-steps-per-program`` is not ported. Prints the kernel launch
-counts on a line of its own (and, for a masked workload, the sub-bucket and
-retry counts on another), then one JSON summary line.
+spectral-NS workload, the four masked-geometry workloads (fpo_regular,
+fpo_hole, fpo_multi_hole, ldc_regular) and burgers, heat and darcy (their
+configs take only ``--resolution``; heat steps through the fused Heun
+kernel K5b on a CUDA device). ``--method`` applies to ns_spectral only;
+``--max-steps-per-program`` is not ported. Prints the kernel launch counts
+on a line of its own (and, for a masked workload, the sub-bucket and retry
+counts on another), then one JSON summary line.
 
 ``evaluate``: the contract-npy form of ``python -m pregen_pde_tpu
 evaluate`` for scOT (``--model scot`` or ``scot-T/S/B/L``): AR rollout
@@ -56,21 +59,47 @@ def _masked_config(args):
                           batch_size=args.batch_size, time_scale=args.time_scale)
 
 
+def _write_batches(args, writer, make_batch) -> None:
+    """Batches of ``batch_size`` as ``pregen_pde_tpu generate`` loops them:
+    ``make_batch(take)`` → one array, written as one shard."""
+    done = 0
+    while done < args.n:
+        take = min(args.batch_size, args.n - done)
+        writer.write_batch(make_batch(take))
+        done += take
+    writer.close()
+
+
 def _generate_masked(generator, args, writer) -> dict:
-    """Batches of ``batch_size`` as ``pregen_pde_tpu generate`` loops them;
-    → the sub-bucket and retry counts."""
+    """The masked workloads' batches; → the sub-bucket and retry counts."""
     from pregen_pde_tpu_torch.datagen.masked_ns import generate_masked_ns_batch, new_stats
 
     cfg = _masked_config(args)
     stats = new_stats()
-    done = 0
-    while done < args.n:
-        take = min(args.batch_size, args.n - done)
-        writer.write_batch(generate_masked_ns_batch(
-            generator, cfg, take, storage_dtype=args.storage_dtype, stats=stats))
-        done += take
-    writer.close()
+    _write_batches(args, writer, lambda take: generate_masked_ns_batch(
+        generator, cfg, take, storage_dtype=args.storage_dtype, stats=stats))
     return stats
+
+
+SIMPLE_WORKLOADS = ("burgers", "heat", "darcy")
+
+
+def _simple_batch(generator, args, take: int) -> np.ndarray:
+    """One batch of a heat, Burgers or Darcy workload, the configs taking
+    only ``--resolution`` (as the JAX CLI passes them)."""
+    from pregen_pde_tpu_torch.core import BurgersConfig
+    from pregen_pde_tpu_torch.datagen import simple
+    from pregen_pde_tpu_torch.solvers.darcy import DarcyConfig
+    from pregen_pde_tpu_torch.solvers.heat import HeatConfig
+
+    if args.workload == "burgers":
+        return simple.generate_burgers_batch(generator, BurgersConfig(resolution=args.resolution),
+                                             take, storage_dtype=args.storage_dtype)
+    if args.workload == "heat":
+        return simple.generate_heat_batch(generator, HeatConfig(resolution=args.resolution),
+                                          take, storage_dtype=args.storage_dtype)
+    return simple.generate_darcy_batch(generator, DarcyConfig(resolution=args.resolution),
+                                       take, storage_dtype=args.storage_dtype)
 
 
 def _cmd_generate(args):
@@ -88,19 +117,20 @@ def _cmd_generate(args):
         scan_existing_h5,
         scan_existing_shards,
     )
+    from pregen_pde_tpu_torch.ops import stencil
     from pregen_pde_tpu_torch.solvers import ns_projection_cuda, spectral_ns_cuda
     from pregen_pde_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    masked = args.workload != "ns_spectral"
+    spectral = args.workload == "ns_spectral"
+    simple = args.workload in SIMPLE_WORKLOADS
+    masked = not (spectral or simple)
     # before any draw or file: what the device's kernels do not handle raises
+    if not spectral and args.method != "auto":
+        raise SystemExit("--method applies to --workload ns_spectral only")
     if masked:
-        if args.method != "auto":
-            raise SystemExit("--method applies to --workload ns_spectral only")
         check_device_supported(_masked_config(args), device)
-        method = None
-    else:
-        method = resolve_method(args.method, args.resolution, device)
+    method = resolve_method(args.method, args.resolution, device) if spectral else None
     start_index = 0
     resume_point = 0
     if args.resume:
@@ -123,8 +153,11 @@ def _cmd_generate(args):
                          resume=args.resume)
     spectral_ns_cuda.reset_launches()
     ns_projection_cuda.reset_launches()
+    stencil.reset_launches()
     stats = None
-    if masked:
+    if simple:
+        _write_batches(args, writer, lambda take: _simple_batch(generator, args, take))
+    elif masked:
         stats = _generate_masked(generator, args, writer)
     else:
         gen = GenerationConfig(
@@ -141,7 +174,8 @@ def _cmd_generate(args):
         torch.cuda.synchronize(device)
     print(json.dumps({"kernel_launches": {
         spectral_ns_cuda.LIB_NAME: spectral_ns_cuda.launches,
-        ns_projection_cuda.LIB_NAME: ns_projection_cuda.launches}}), flush=True)
+        ns_projection_cuda.LIB_NAME: ns_projection_cuda.launches,
+        stencil.LIB_NAME: stencil.launches}}), flush=True)
     if stats is not None:
         print(json.dumps({"masked_ns": stats}), flush=True)
     print(json.dumps({"generated": args.n, "out": args.out, "device": str(device),
@@ -388,7 +422,7 @@ def main(argv=None):
     g = sub.add_parser("generate")
     g.add_argument("--workload", default="ns_spectral",
                    choices=["ns_spectral", "fpo_regular", "fpo_hole", "fpo_multi_hole",
-                            "ldc_regular"])
+                            "ldc_regular", *SIMPLE_WORKLOADS])
     g.add_argument("--n", type=int, default=128)
     g.add_argument("--out", required=True)
     g.add_argument("--prefix", default="results")

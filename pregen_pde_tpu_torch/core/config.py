@@ -33,3 +33,15 @@ class GRFConfig:
     alpha: float = 2.5
     tau: float = 7.0
     sigma: float | None = None  # default: tau^(0.5*(2*alpha - d))
+
+
+@dataclasses.dataclass(frozen=True)
+class BurgersConfig:
+    """1-D viscous Burgers: ν = 0.1, 1024-point spectral grid."""
+
+    resolution: int = 1024
+    viscosity: float = 0.1
+    length: float = 1.0
+    dt: float = 1e-4
+    t_end: float = 1.0
+    n_snapshots: int = 20

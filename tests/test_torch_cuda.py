@@ -13,8 +13,10 @@ import torch
 
 from pregen_pde_tpu_torch.core import NSVorticityConfig
 from pregen_pde_tpu_torch.datagen.masked_ns import MaskedNSConfig, sample_masks
+from pregen_pde_tpu_torch.ops import stencil
 from pregen_pde_tpu_torch.solvers import ns_projection_cuda as npc
 from pregen_pde_tpu_torch.solvers import spectral_ns_cuda as snc
+from pregen_pde_tpu_torch.solvers.heat import HeatConfig, HeatSolver
 from pregen_pde_tpu_torch.solvers.ns_projection import ProjectionConfig, ProjectionSolver
 from pregen_pde_tpu_torch.solvers.spectral_ns import NSVorticitySolver
 from pregen_pde_tpu_torch.utils.parity import per_snapshot_rel_l2, rel_l2, to_torch
@@ -253,3 +255,91 @@ def test_scot_kernel_routes_match_plain():
     assert outs["attention-only", "launches"] == (0, 8)
     for route in ("auto", "attention-only"):
         assert rel_l2(outs[route], outs["plain"]) <= 1e-4
+
+
+# K5a and K5b against their plain versions (relative L2; K5b on the step's
+# increment), and a heat route against the plain route per snapshot:
+# chip_smoke.py phase 23's bars (K5a measured bit-identical; K5b 2.2e-6 and
+# the fused route 1.1e-7 measured, NVIDIA H100)
+K5A_VS_PLAIN_BAR = 1e-7
+K5B_VS_PLAIN_BAR = 7e-5
+HEAT_ROUTE_VS_PLAIN_BAR = 3.5e-6
+
+
+def _smooth_fields(B, n, seed):
+    from pregen_pde_tpu_torch.core import SpectralGrid2D
+    from pregen_pde_tpu_torch.fields.grf import grf_2d
+
+    return grf_2d(torch.Generator(device="cuda").manual_seed(seed), SpectralGrid2D(n), B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 33, 130])
+@pytest.mark.parametrize("B", [1, 3])
+def test_k5a_kernel_matches_plain(B, n):
+    _need_cuda()
+    u = _smooth_fields(B, n, seed=n)
+    stencil.reset_launches()
+    got = stencil.laplacian_cuda(u, 1.0 / n)
+    torch.cuda.synchronize()
+    assert stencil.launches == 1 and got.shape == u.shape
+    assert rel_l2(got, stencil.laplacian(u, 1.0 / n)) <= K5A_VS_PLAIN_BAR
+    # a 2-D input is one image
+    assert rel_l2(stencil.laplacian_cuda(u[0], 1.0 / n), got[0]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reaction", [0.0, 1.0])
+@pytest.mark.parametrize("n", [4, 33, 130])
+@pytest.mark.parametrize("B", [1, 3])
+def test_k5b_kernel_matches_plain(B, n, reaction):
+    _need_cuda()
+    u = _smooth_fields(B, n, seed=7 * n)
+    dx, D, dt = 1.0 / n, 1e-2, 1e-4
+    got = stencil.heat_step_cuda(u, dx, D, dt, reaction)
+    ref = stencil.heat_step(u, dx, D, dt, reaction)
+    torch.cuda.synchronize()
+    assert rel_l2(got - u, ref - u) <= K5B_VS_PLAIN_BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 4, 5])
+def test_k5b_advance_ping_pong_and_frame(steps):
+    """``heat_advance`` leaves its input unwritten, returns the buffer that
+    holds the last step for odd and even counts, writes the frame, and
+    launches one kernel a step."""
+    _need_cuda()
+    n = 130
+    u = _smooth_fields(3, n, seed=1)
+    u_copy = u.clone()
+    out = torch.zeros((3, 4, n, n), device="cuda")
+    stencil.reset_launches()
+    got = stencil.heat_advance(u, steps, 1.0 / n, 1e-2, 1e-4, 1.0, frame=out[:, 2])
+    ref = u
+    for _ in range(steps):
+        ref = stencil.heat_step_cuda(ref, 1.0 / n, 1e-2, 1e-4, 1.0)
+    torch.cuda.synchronize()
+    assert stencil.launches == 2 * steps
+    assert torch.equal(got, ref) and torch.equal(out[:, 2], ref) and torch.equal(u, u_copy)
+    assert (out[:, [0, 1, 3]] == 0).all()
+    with pytest.raises(ValueError):
+        stencil.heat_advance(u, 1, 1.0 / n, 1e-2, 1e-4, frame=out[:, :, 0])
+    with pytest.raises(ValueError):
+        stencil.laplacian_cuda(u.double(), 1.0 / n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["fused", "laplacian"])
+def test_heat_kernel_routes_match_plain(impl):
+    """The K5b and K5a routes of ``HeatSolver`` against the plain route, per
+    snapshot, with exact launch counts (K5b one a step, K5a two)."""
+    _need_cuda()
+    cfg = HeatConfig(resolution=64, reaction=1.0, t_end=0.02, n_snapshots=4)
+    u0 = _smooth_fields(3, 64, seed=2)
+    stencil.reset_launches()
+    got = HeatSolver(cfg, impl=impl).make_batched_trajectory_fn()(u0)
+    torch.cuda.synchronize()
+    assert stencil.launches == (200 if impl == "fused" else 400)
+    ref = HeatSolver(cfg, impl="plain").make_batched_trajectory_fn()(u0)
+    assert got.shape == ref.shape == (3, 5, 64, 64) and torch.equal(got[:, 0], u0)
+    assert per_snapshot_rel_l2(got, ref).max() <= HEAT_ROUTE_VS_PLAIN_BAR

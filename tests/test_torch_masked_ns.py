@@ -139,7 +139,8 @@ def test_cli_masked_generate_writes_readable_shards(tmp_path, capsys):
     assert data.shape == (3, 21, 32, 32, 6) and np.isfinite(data).all()
     assert (data[..., 4].sum(axis=(2, 3)) == 256).all()  # one 16² hole, every frame
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
-    assert lines[0] == {"kernel_launches": {"spectral_ns_step": 0, "ns_projection_step": 0}}
+    assert lines[0] == {"kernel_launches": {"spectral_ns_step": 0, "ns_projection_step": 0,
+                                            "stencil": 0}}
     assert lines[1]["masked_ns"]["sub_buckets"] >= 2 and lines[1]["masked_ns"]["retries"] == 0
     main(base + ["--n", "5", "--resume"])
     assert load_shards(out).shape == (5, 21, 32, 32, 6)
