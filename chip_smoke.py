@@ -27,15 +27,20 @@ Phases (any failure exits nonzero; no phase catches a failure):
    outputs, and K1 vs plain float32 on those inputs (relative L2 ≤ 1e-5 at
    every snapshot).
 
-7. K2 (the Chorin projection stepper) is built in phase 2, in parallel
-   with K1 (one ``nvcc`` each); its build seconds are printed here;
+7. K2 (the Chorin projection stepper, one cluster-resident launch a call)
+   is built in phase 2, in parallel with K1 (one ``nvcc`` each); its build
+   seconds and how many clusters the card holds at 32², 128², 256² are
+   printed here;
 8. K2 against its plain float32 version on the same inputs, per-snapshot
    relative L2 of the (u, v, p) frames, worst over the batch, ≤ 7e-5 at
    every snapshot: (a) channel 128², B=8, ``fpo_multi_hole`` masks, u_max
    across Re 100…10000, the batch's smallest CFL dt, 20 snapshots × 50
    steps; (b) cavity 128², B=4, the same Re range; (c) channel 256², B=4,
-   5 × 20 steps. Then K2's interior divergence (inlet-aware, [2:-2, 2:-2])
-   on a no-hole channel must be ≤ 2× the plain version's;
+   5 × 20 steps; (d) the masked main path's own batch (``fpo_multi_hole``,
+   B=32, 128², its Re draws) at time-scale 0.01: every trajectory at its
+   CFL sub-bucket's dt and inner steps, longest first, in one launch
+   (exactly one counted). Then K2's interior divergence (inlet-aware,
+   [2:-2, 2:-2]) on a no-hole channel must be ≤ 2× the plain version's;
 9. the Ghia cavity through K2 at 128², Re 100 and 400: centreline
    deviations < 0.05/0.03 and < 0.07/0.06 (u/v), extrema within 8%;
 10. the masked main path: ``generate --workload fpo_multi_hole --n 32
@@ -45,13 +50,16 @@ Phases (any failure exits nonzero; no phase catches a failure):
     hole cells per multi-hole trajectory), an SDF in [−1, 1] that is < 0
     exactly where the mask is 1, Re_norm in [0, 1], the inlet (fpo: u on
     column 0 = parabolic_inlet × Re·ν/L) or the lid (ldc: u on the top row
-    = u_max) in every frame at relative 1e-5, and K2 launches > 0;
+    = u_max) in every frame at relative 1e-5, and K2 launched exactly once
+    a batch and once a retry attempt (the CLI's ``calls``);
 11. K2 and the plain version in µs per trajectory-step at B = 1, 8, 32
-    (128², ``fpo_multi_hole`` masks, Re 5000, 1000 steps). Their end states
-    are printed against each other and against K2 with u_max moved by one
-    ulp, for information only: 1000 steps there are 60 time units, longer
-    than the shedding flow keeps float32 roundoff small (NVIDIA H100: K2 vs
-    plain 3.1e-5 at B=1 and 8.3e-4 at B=32).
+    (128², ``fpo_multi_hole`` masks, Re 5000, 1000 steps), K2 at B = 32
+    against its float32 and its 3xTF32 bound, and the main path's batch at
+    time-scale 1.0 as its one call. The end states are printed against each
+    other and against K2 with u_max moved by one ulp, for information only:
+    1000 steps there are 60 time units, longer than the shedding flow keeps
+    float32 roundoff small (NVIDIA H100: K2 vs plain 3.1e-5 at B=1 and
+    8.3e-4 at B=32, the earlier seven-launch chain).
 
 12. K3 (the Swin-V2 block) and K4 (window attention) are built in phase 2
     beside K1 and K2; their build seconds are printed here;
@@ -130,7 +138,10 @@ The 1e-5 bar of K1 against the plain float32 version is about 30× what the
 two differ by when both are right (2.4e-7 vorticity, 3.6e-7 fields at the
 north star, NVIDIA H100): a kernel error of its own of 1e-5 fails it. The
 7e-5 bar of K2 is about 30× its worst case when both are right (2.3e-6 at
-phase 8 (a), growing over the snapshots; NVIDIA H100).
+phase 8 (a), growing over the snapshots, for the earlier float32 chain; the
+cluster kernel's 3xTF32 products read 4.0e-6 there; NVIDIA H100). Two
+mutants of the cluster kernel failed phase 8 by ≥ 10⁴× the bar: the
+cavity's zero mode left alone, and a halo row off by one.
 
 K3's, K4's and the whole model's bars are about 30× what each differs from
 its plain version by when both are right (7.0e-7, 4.8e-7 and 8.4e-7 worst,
@@ -145,7 +156,9 @@ are about 30× their first run's worst (2.2e-6 increment; 1.1e-7 fused, 7.0e-8
 laplacian route), the mean drift's 30× 9.3e-6 and Darcy's 30× 5.8e-7 (NVIDIA
 H100). Each kernel's ``bound_ms`` is the larger of its bytes (inputs read
 once, outputs written once) over 3.35 TB/s and its float32 operations over
-67 TFLOP/s, computed from the shapes of the call that is timed.
+67 TFLOP/s, computed from the shapes of the call that is timed; K2's
+entry also carries ``bound_3xtf32_ms``, its products' 3 × 8n³ FLOP per
+image-step over the 495 TFLOP/s of TF32 on the tensor cores.
 
 Prints a kernels JSON line and the card line, then, as its last line,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -184,6 +197,7 @@ HEAT_MEAN_DRIFT_BAR = 3e-4
 DARCY_F32_VS_F64_BAR = 2e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12        # H100 SXM TF32 on the tensor cores, dense
 
 
 def fail(msg: str) -> None:
@@ -441,7 +455,8 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
     import numpy as np
     import torch
 
-    from pregen_pde_tpu_torch.datagen.masked_ns import MaskedNSConfig, cfl_dt, sample_masks
+    from pregen_pde_tpu_torch.datagen.masked_ns import (
+        MaskedNSConfig, cfl_dt, draw_masked_inputs, plan_rows, sample_masks)
     from pregen_pde_tpu_torch.datagen.writer import load_shards
     from pregen_pde_tpu_torch.kernels import build
     from pregen_pde_tpu_torch.solvers import ns_projection_cuda as npc
@@ -456,7 +471,9 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
     k2_build.result()
     build.load(npc.LIB_NAME)
     say(f"[7] built {npc.LIB_NAME} (sm_90a): done {time.perf_counter() - t0_build:.2f} s "
-        f"after the parallel builds started (nvcc {build.build_seconds[npc.LIB_NAME]:.2f} s)")
+        f"after the parallel builds started (nvcc {build.build_seconds[npc.LIB_NAME]:.2f} s); "
+        f"clusters resident at once: " + ", ".join(
+            f"{n}^2 {npc.max_active_clusters(n)}" for n in (32, 128, 256)))
 
     gen = torch.Generator(device=dev).manual_seed(2)
 
@@ -495,6 +512,38 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
             f"plain f32 per-snapshot rel L2 first / mid / last {err[1]:.3e} / "
             f"{err[S // 2]:.3e} / {err[S]:.3e}, worst {err.max():.3e} "
             f"(bar {K2_VS_PLAIN_BAR:.0e}); max abs {float((k2 - p32).abs().max()):.3e}")
+
+    def main_plan(time_scale, B=32):
+        """The masked main path's batch: fpo_multi_hole masks and Re draws,
+        each trajectory at its sub-bucket's dt and inner steps, longest
+        first, as generate_masked_ns_batch makes its one call."""
+        cfg = MaskedNSConfig(pipeline="fpo_multi_hole", resolution=128, time_scale=time_scale)
+        z_re, masks = draw_masked_inputs(gen, cfg, B)
+        re = schedules.sample_reynolds(z=z_re, mean=cfg.re_mean, std=cfg.re_std)
+        u_max = re.cpu().numpy() * cfg.viscosity / cfg.length
+        end_t = schedules.end_time_from_re(re).cpu().numpy() * time_scale
+        pr = plan_rows(u_max, end_t, cfg)
+        order = np.argsort(-pr["inner"], kind="stable")
+        rows = pr["rows"][order]
+        return (cfg, masks[torch.as_tensor(rows, device=dev)],
+                torch.as_tensor(u_max[rows], dtype=torch.float32, device=dev),
+                torch.as_tensor(pr["inner"][order]), torch.as_tensor(pr["dt"][order]),
+                len(pr["plan"]))
+
+    cfg_d, masks, u_max, inner, dts, n_sub = main_plan(0.01)
+    sol = ProjectionSolver(ProjectionConfig(resolution=128, n_snapshots=cfg_d.n_snapshots))
+    npc.reset_launches()
+    k2 = npc.build_batched_traj(sol)(masks, u_max, inner, dts)
+    if npc.launches != 1:
+        fail(f"K2 (d): {npc.launches} launches for one call")
+    p32 = sol.make_batched_trajectory_fn()(masks, u_max, inner, dts)
+    err = k2_vs_plain(k2, p32, "(d) the main path's plan")
+    say(f"[8] (d) fpo_multi_hole 128^2 B=32, the main path's plan at time-scale 0.01 in one "
+        f"launch: {n_sub} sub-buckets, dt {float(dts.min()):.5g}..{float(dts.max()):.5g}, "
+        f"{int(inner.min())}..{int(inner.max())} steps a snapshot x {cfg_d.n_snapshots}: K2 vs "
+        f"plain f32 per-snapshot rel L2 first / mid / last {err[1]:.3e} / "
+        f"{err[cfg_d.n_snapshots // 2]:.3e} / {err[-1]:.3e}, worst {err.max():.3e} "
+        f"(bar {K2_VS_PLAIN_BAR:.0e})")
 
     # interior divergence on a no-hole channel, inlet-aware
     n = 128
@@ -558,8 +607,9 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
             stats = [l["masked_ns"] for l in lines if "masked_ns" in l]
             if len(count) != 1 or len(stats) != 1:
                 fail(f"generate {workload} printed no launch/stats line:\n{r.stdout[-2000:]}")
-            if count[0] <= 0:
-                fail(f"the {workload} main path never launched K2")
+            if count[0] <= 0 or count[0] != stats[0]["calls"]:
+                fail(f"the {workload} main path launched K2 {count[0]} times, not once a "
+                     f"batch and once a retry attempt ({stats[0]['calls']} calls)")
             k2_launches += count[0]
             data = load_shards(out)
             check_masked_shard(data, workload, n_traj, parabolic_inlet, schedules)
@@ -570,7 +620,7 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
                 f"and build, {n_traj / wall:.3f} traj/s; {stats[0]['sub_buckets']} "
                 f"sub-buckets, {stats[0]['retries']} retries "
                 f"({stats[0]['retried_trajectories']} trajectories); K2 launches "
-                f"{count[0]}; shard {data.shape} finite, mask/SDF/Re/"
+                f"{count[0]} = calls (batches + retry attempts) {stats[0]['calls']}; shard {data.shape} finite, mask/SDF/Re/"
                 f"{'inlet' if workload != 'ldc_regular' else 'lid'} checks passed | {card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -594,17 +644,36 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
         nudged = k2(masks, u_max * (1.0 + 2.0 ** -23), steps, dt)
         res[B] = (t_k2, t_p)
         say(f"[11] 128^2 fpo_multi_hole B={B} {steps} steps: K2 "
-            f"{t_k2 / (steps * B) * 1e6:.3f} us/traj-step ({t_k2 * 1e3:.1f} ms) | plain "
+            f"{t_k2 / (steps * B) * 1e6:.3f} us/traj-step ({t_k2 * 1e3:.2f} ms) | plain "
             f"{t_p / (steps * B) * 1e6:.3f} us/traj-step ({t_p * 1e3:.1f} ms) | end state, "
             f"worst rel L2: K2 vs plain f32 {per_snapshot_rel_l2(out_k2, out_p)[1]:.3e}, "
             f"K2 vs K2 with u_max + 1 ulp {per_snapshot_rel_l2(out_k2, nudged)[1]:.3e} "
             f"(information) | {card}")
+    # the main path's batch at time-scale 1.0 (the reference's horizons) as
+    # the one call generate_masked_ns_batch makes; its longest trajectory
+    # sets the time while the card holds every image's cluster at once
+    cfg_m, masks, u_max, inner, dts, n_sub = main_plan(1.0)
+    sol_m = ProjectionSolver(ProjectionConfig(resolution=128, n_snapshots=cfg_m.n_snapshots))
+    k2_m = npc.build_batched_traj(sol_m)
+    _, t_m = timed(lambda: k2_m(masks, u_max, inner, dts))
+    img_steps = int(inner.sum()) * cfg_m.n_snapshots
+    longest = int(inner.max()) * cfg_m.n_snapshots
+    say(f"[11] the main path's plan, fpo_multi_hole 128^2 B=32 time-scale 1.0, {n_sub} "
+        f"sub-buckets in one launch: {t_m:.3f} s for {img_steps} trajectory-steps "
+        f"({t_m / img_steps * 1e6:.3f} us/traj-step), longest trajectory {longest} steps "
+        f"({t_m / longest * 1e6:.3f} us a step of it) | {card}")
     t_k2, t_p = res[32]
     # K2's work at B = 32: four (n x n)(n x n) products per image-step
-    # (8 n³ FLOP; the stencils are not counted); bytes: masks and u_max in,
-    # the (B, 2, n, n, 3) frames out
-    k2_bound = bound(32 * 128 * 128 * 4 + 32 * 4 + 32 * 2 * 128 * 128 * 3 * 4,
-                     32 * steps * 8 * 128**3)
+    # (8 n^3 FLOP; the stencils are not counted); bytes: masks, u_max, dt and
+    # the steps in, the (B, 2, n, n, 3) frames out. Bounds: float32 at 67
+    # TFLOP/s, and the 3xTF32 route's 3 x 8 n^3 at 495 TFLOP/s
+    k2_bytes = 32 * 128 * 128 * 4 + 3 * 32 * 4 + 32 * 2 * 128 * 128 * 3 * 4
+    k2_bound = bound(k2_bytes, 32 * steps * 8 * 128**3)
+    k2_bound_tf32 = max(k2_bytes / HBM_BYTES_PER_S,
+                        3 * 32 * steps * 8 * 128**3 / TF32_FLOPS) * 1e3
+    say(f"[11] K2 at B=32, {steps} steps: {t_k2 * 1e3:.3f} ms against its float32 bound "
+        f"{k2_bound[0]:.3f} ms ({k2_bound[0] / (t_k2 * 1e3):.1%}) and its 3xTF32 bound "
+        f"{k2_bound_tf32:.3f} ms ({k2_bound_tf32 / (t_k2 * 1e3):.1%}) | {card}")
     return {
         "name": npc.LIB_NAME,
         "route": "cuda",
@@ -616,6 +685,7 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
         "plain_ms": t_p * 1e3,
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],
+        "bound_3xtf32_ms": k2_bound_tf32,
         "library_ms": None,
     }, fpo
 

@@ -9,18 +9,22 @@
 
 Per batch: Re ~ clip(N(5000, 2000²)) → Umax = Re·ν/L → the band-law horizon
 × ``time_scale`` → masks and their SDFs → horizon buckets, each split into
-sub-buckets by the power-of-two level of its members' own CFL dt and run at
-the smallest dt of the sub-bucket, padded to a power of two by repeating
-its first index → the storage cast on the device → the dt/2 retry of only
-the non-finite rows (``nonfinite_retries`` times, so the count stays exact)
-→ the (N, T, H, W, 6) contract ``[u, v, p, Re_norm, mask, SDF]``.
+sub-buckets by the power-of-two level of its members' own CFL dt; each
+trajectory runs at the smallest dt of its sub-bucket, and the whole batch
+runs as ONE call with per-trajectory dt and inner steps, longest trajectory
+first → the storage cast on the device → the dt/2 retry of only the
+non-finite rows, all of them in one call per attempt
+(``nonfinite_retries`` times, so the count stays exact) → the (N, T, H, W,
+6) contract ``[u, v, p, Re_norm, mask, SDF]``. The plan and each row's dt
+and steps are the JAX package's, which ran the sub-buckets one by one (one
+compiled executable needed a scalar dt).
 
 The draws are split from the compute: ``draw_masked_inputs`` makes the Re
 normal ``z`` and the masks from an explicit ``torch.Generator``, and
 ``generate_masked_ns_batch_from_inputs`` is a pure function of them, so a
-test can feed it JAX's own draws. On a CUDA device every sub-bucket runs
-through the hand-written CUDA stepper (``ns_projection_cuda``), and a
-config it does not handle raises; on the CPU the plain version runs.
+test can feed it JAX's own draws. On a CUDA device the batch runs through
+the hand-written CUDA stepper (``ns_projection_cuda``, one launch a call),
+and a config it does not handle raises; on the CPU the plain version runs.
 """
 
 from __future__ import annotations
@@ -149,6 +153,26 @@ def plan_sub_buckets(u_max: np.ndarray, end_t: np.ndarray,
     return plan
 
 
+def inner_steps_for(horizon, dt, n_snapshots: int) -> np.ndarray:
+    """Inner steps per snapshot of a trajectory of ``horizon`` at ``dt``:
+    round(horizon/dt) // n_snapshots, at least 1 (the JAX package's rule)."""
+    total = np.round(np.asarray(horizon, np.float64) / np.asarray(dt, np.float64))
+    return np.maximum(total.astype(np.int64) // n_snapshots, 1)
+
+
+def plan_rows(u_max: np.ndarray, end_t: np.ndarray, cfg: MaskedNSConfig) -> dict:
+    """``plan_sub_buckets`` flattened to one entry per trajectory: ``rows``
+    (batch indices), ``sub`` (its sub-bucket), ``horizon``, ``dt`` (its
+    sub-bucket's) and ``inner`` steps per snapshot, plus the ``plan``."""
+    plan = plan_sub_buckets(u_max, end_t, cfg)
+    rows = np.concatenate([idx for idx, _, _ in plan])
+    sub = np.concatenate([np.full(len(idx), k) for k, (idx, _, _) in enumerate(plan)])
+    horizon = np.concatenate([np.full(len(idx), h) for idx, h, _ in plan])
+    dt = np.concatenate([np.full(len(idx), d) for idx, _, d in plan])
+    return {"plan": plan, "rows": rows, "sub": sub, "horizon": horizon, "dt": dt,
+            "inner": inner_steps_for(horizon, dt, cfg.n_snapshots)}
+
+
 def draw_masked_inputs(generator: torch.Generator, cfg: MaskedNSConfig,
                        n: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(z_re (n,) float64, masks (n, res, res) float32) on the generator's
@@ -160,9 +184,12 @@ def draw_masked_inputs(generator: torch.Generator, cfg: MaskedNSConfig,
 
 
 def new_stats() -> dict:
-    """Counters ``generate_masked_ns_batch`` adds to: sub-bucket launches,
-    retry launches and the trajectories retried."""
-    return {"sub_buckets": 0, "retries": 0, "retried_trajectories": 0}
+    """Counters ``generate_masked_ns_batch`` adds to. In the JAX package's
+    meaning: the plan's sub-buckets, the retries (per attempt, the
+    sub-buckets with a non-finite row) and the trajectories retried. Of
+    the port: the stepper calls, one per batch and one per retry attempt
+    (on a card, one K2 launch each)."""
+    return {"sub_buckets": 0, "retries": 0, "retried_trajectories": 0, "calls": 0}
 
 
 def generate_masked_ns_batch_from_inputs(z_re: torch.Tensor, masks: torch.Tensor,
@@ -195,45 +222,49 @@ def generate_masked_ns_batch_from_inputs(z_re: torch.Tensor, masks: torch.Tensor
     traj = _batched_traj_for(solver, dev)
     store = getattr(torch, np.dtype(storage_dtype).name)
 
-    def _run(idx_raw: np.ndarray, horizon: float, dt_b: float) -> np.ndarray:
-        # pad to the next power of two by repeating the first index
-        n_real = len(idx_raw)
-        size = 1 << (n_real - 1).bit_length()
-        idx = np.concatenate([idx_raw, np.full(size - n_real, idx_raw[0])])
-        total_steps = int(round(float(horizon) / dt_b))
-        inner = max(total_steps // cfg.n_snapshots, 1)
-        sel = torch.as_tensor(idx, device=dev)
-        frames = traj(masks[sel],
+    pr = plan_rows(u_max_np, end_t_np, cfg)
+    plan, rows, sub, horizon = pr["plan"], pr["rows"], pr["sub"], pr["horizon"]
+    stats["sub_buckets"] += len(plan)
+
+    def _run(sel: np.ndarray, dt_sel: np.ndarray) -> np.ndarray:
+        """One call for the rows ``sel`` of the plan, each at its own dt and
+        inner steps, longest trajectory first; → frames in ``sel``'s order."""
+        inner = inner_steps_for(horizon[sel], dt_sel, cfg.n_snapshots)
+        order = np.argsort(-inner, kind="stable")
+        idx = rows[sel][order]
+        frames = traj(masks[torch.as_tensor(idx, device=dev)],
                       torch.as_tensor(u_max_np[idx], dtype=torch.float32, device=dev),
-                      inner, dt_b)
+                      torch.as_tensor(inner[order]), torch.as_tensor(dt_sel[order]))
+        stats["calls"] += 1
         if frames.dtype != store:
             frames = frames.to(store)  # cast on the device before the fetch
-        return frames.cpu().numpy()[:n_real]
+        got = np.empty((len(sel), *frames.shape[1:]), np.dtype(storage_dtype))
+        got[order] = frames.cpu().numpy()
+        return got
 
-    def _run_bucket(idx_raw: np.ndarray, horizon: float, dt_b: float) -> None:
-        frames = _run(idx_raw, horizon, dt_b)
-        stats["sub_buckets"] += 1
-        # trajectories that go non-finite (severe constrictions) re-run at
-        # dt/2 through the same build, only the bad rows, so the count stays
-        for attempt in range(cfg.nonfinite_retries):
-            finite = np.isfinite(frames).all(axis=tuple(range(1, frames.ndim)))
-            if finite.all():
-                break
-            bad = idx_raw[~finite]
-            dt_b /= 2.0
+    frames = _run(np.arange(len(rows)), pr["dt"])
+    # trajectories that go non-finite (severe constrictions) re-run together
+    # at dt/2 per attempt, each at its own sub-bucket's dt/2^attempt, so the
+    # count stays; a retry counts once per sub-bucket with a bad row
+    dt_now = pr["dt"].copy()
+    for attempt in range(cfg.nonfinite_retries):
+        finite = np.isfinite(frames).all(axis=tuple(range(1, frames.ndim)))
+        if finite.all():
+            break
+        bad = np.nonzero(~finite)[0]
+        dt_now[bad] /= 2.0
+        for k in np.unique(sub[bad]):
             logging.getLogger("pregen_pde_tpu_torch.datagen").warning(
-                "masked_ns horizon %s: %d/%d non-finite, retrying at dt=%g "
-                "(attempt %d)", horizon, len(bad), len(idx_raw), dt_b, attempt + 1)
-            frames[~finite] = _run(bad, horizon, dt_b)
-            stats["retries"] += 1
-            stats["retried_trajectories"] += len(bad)
-        out[idx_raw, :, :, :, 0:3] = frames
-        out[idx_raw, :, :, :, 3] = re_norm_np[idx_raw, None, None, None]
-        out[idx_raw, :, :, :, 4] = masks_np[idx_raw, None, :, :]
-        out[idx_raw, :, :, :, 5] = sdfs_np[idx_raw, None, :, :]
-
-    for idx, horizon, dt_b in plan_sub_buckets(u_max_np, end_t_np, cfg):
-        _run_bucket(idx, horizon, dt_b)
+                "masked_ns horizon %s: %d/%d non-finite, retrying at dt=%g (attempt %d)",
+                plan[k][1], int((sub[bad] == k).sum()), len(plan[k][0]),
+                dt_now[bad][sub[bad] == k][0], attempt + 1)
+        frames[bad] = _run(bad, dt_now[bad])
+        stats["retries"] += len(np.unique(sub[bad]))
+        stats["retried_trajectories"] += len(bad)
+    out[rows, :, :, :, 0:3] = frames
+    out[:, :, :, :, 3] = re_norm_np[:, None, None, None]
+    out[:, :, :, :, 4] = masks_np[:, None, :, :]
+    out[:, :, :, :, 5] = sdfs_np[:, None, :, :]
     return out
 
 

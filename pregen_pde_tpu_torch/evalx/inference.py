@@ -15,6 +15,7 @@ import torch
 from pregen_pde_tpu_torch.models.scot import fft_resize
 from pregen_pde_tpu_torch.training.datasets import TIME_NORMALIZER
 from pregen_pde_tpu_torch.training.metrics import relative_lp_error
+from pregen_pde_tpu_torch.utils.device import resolve_device
 
 __all__ = ["accumulation_error", "fft_resize"]
 
@@ -35,10 +36,12 @@ def accumulation_error(
     max_steps: int = 7,
     batch_size: int = 16,
     out_channels: int = 3,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> list[dict]:
     """Roll 1-step jumps ``max_steps`` times; report the error against the
-    truth at each step."""
+    truth at each step. ``device`` defaults to the card and raises where
+    there is none; pass ``"cpu"`` for the CPU."""
+    device = resolve_device(device)
     n, start = dataset.n_traj, dataset.start
     ts = dataset.cfg.time_step_size
     lead = ts / TIME_NORMALIZER  # one time_step_size jump per AR step

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from pregen_pde_tpu_torch.training.datasets import TIME_NORMALIZER
+from pregen_pde_tpu_torch.utils.device import resolve_device
 from pregen_pde_tpu_torch.training.metrics import error_summary, grouped_error_summary
 
 
@@ -54,11 +55,13 @@ def evaluate_patterns(
     batch_size: int = 16,
     out_channels: int = 3,
     label_description: str | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> dict[str, dict]:
     """For each pattern, roll out from the t = 0 inputs of the dataset's
     trajectories and score the final state against the true frame at
-    t = sum(pattern)."""
+    t = sum(pattern). ``device`` defaults to the card and raises where
+    there is none; pass ``"cpu"`` for the CPU."""
+    device = resolve_device(device)
     from pregen_pde_tpu_torch.evalx.inference import _prep_inputs
 
     start, n = dataset.start, dataset.n_traj

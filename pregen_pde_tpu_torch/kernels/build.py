@@ -43,16 +43,18 @@ def find_nvcc() -> str | None:
     return next((c for c in cands if os.path.isfile(c) and os.access(c, os.X_OK)), None)
 
 
-def library_path(name: str, build_dir: Path = BUILD_DIR) -> Path:
+def library_path(name: str, build_dir: Path = BUILD_DIR, defines: tuple = ()) -> Path:
     # the headers a source may include count as part of it
     src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    flags = " ".join([*NVCC_FLAGS, *(f"-D{d}" for d in defines)])
+    tag = hashlib.sha256(src + flags.encode()).hexdigest()[:12]
     return build_dir / f"{name}_{tag}.so"
 
 
-def build(name: str, build_dir: Path = BUILD_DIR) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the hashed artifact exists."""
-    so_path = library_path(name, build_dir)
+def build(name: str, build_dir: Path = BUILD_DIR, defines: tuple = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` for each of ``defines``: a
+    profiling build) unless the hashed artifact exists."""
+    so_path = library_path(name, build_dir, defines)
     if so_path.exists():
         build_seconds.setdefault(name, 0.0)
         return so_path
@@ -64,7 +66,8 @@ def build(name: str, build_dir: Path = BUILD_DIR) -> Path:
         )
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -77,9 +80,10 @@ def build(name: str, build_dir: Path = BUILD_DIR) -> Path:
     return so_path
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """Build (if needed) and dlopen ``csrc/<name>.cu``; cached per process."""
-    lib = _loaded.get(name)
+    key = name if not defines else f"{name}[{','.join(defines)}]"
+    lib = _loaded.get(key)
     if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(str(build(name)))
+        lib = _loaded[key] = ctypes.CDLL(str(build(name, defines=defines)))
     return lib

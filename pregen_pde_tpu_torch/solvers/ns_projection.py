@@ -90,6 +90,32 @@ def constants(solver: "ProjectionSolver", dtype: torch.dtype = torch.float32,
     return _constants(cfg.resolution, cfg.domain, float(cfg.length), dtype, str(device))
 
 
+def _is_scalar(a) -> bool:
+    return a is None or np.ndim(a.cpu() if isinstance(a, torch.Tensor) else a) == 0
+
+
+def per_image_steps(solver: "ProjectionSolver", inner_steps, B: int) -> np.ndarray:
+    """``inner_steps`` (None = the config's, a scalar, or one per image) as
+    a (B,) int64 array; raises on a negative count."""
+    if inner_steps is None:
+        inner_steps = solver.default_inner_steps()
+    a = inner_steps.cpu().numpy() if isinstance(inner_steps, torch.Tensor) else inner_steps
+    steps = np.broadcast_to(np.asarray(a, dtype=np.int64), (B,)).copy()
+    if (steps < 0).any():
+        raise ValueError(f"inner_steps must be >= 0, got {steps.min()}")
+    return steps
+
+
+def per_image_dt(solver: "ProjectionSolver", dt, B: int) -> np.ndarray:
+    """``dt`` (None = the config's, a scalar, or one per image) as a (B,)
+    float32 array: each value rounded once to the float32 JAX computes
+    with."""
+    if dt is None:
+        dt = solver.cfg.dt
+    a = dt.cpu().numpy() if isinstance(dt, torch.Tensor) else dt
+    return np.broadcast_to(np.asarray(a, dtype=np.float64).astype(np.float32), (B,)).copy()
+
+
 def _per_image(u_max, like: torch.Tensor):
     """u_max as a python float or a tensor shaped (..., 1) to broadcast
     against a (..., n) boundary line."""
@@ -332,7 +358,7 @@ class ProjectionSolver:
     def make_trajectory_fn(self):
         """``traj(mask (..., n, n), u_max=None, inner_steps=None, dt=None)`` →
         (..., n_snapshots+1, n, n, 3) float32 [u, v, p] snapshots from rest
-        (frame 0 = rest + BCs). ``inner_steps`` and ``dt`` are scalars shared
+        (frame 0 = rest + BCs; float64 for a float64 mask, the tests' case). ``inner_steps`` and ``dt`` are scalars shared
         by the batch; ``u_max`` is a scalar or one value per image."""
         cfg = self.cfg
         dx = cfg.length / cfg.resolution
@@ -341,9 +367,10 @@ class ProjectionSolver:
             inner = self.default_inner_steps() if inner_steps is None else int(inner_steps)
             # dt as the float32 value JAX computes with
             dt = float(np.float32(cfg.dt if dt is None else float(dt)))
-            mask = mask.to(torch.float32)
+            if mask.dtype != torch.float64:  # float64 masks keep a float64 state
+                mask = mask.to(torch.float32)
             if isinstance(u_max, torch.Tensor):
-                u_max = u_max.to(device=mask.device, dtype=torch.float32)
+                u_max = u_max.to(device=mask.device, dtype=mask.dtype)
             z = torch.zeros_like(mask)
             u, v = self.apply_velocity_bc(z, z, u_max)
             p = z
@@ -358,7 +385,32 @@ class ProjectionSolver:
 
     def make_batched_trajectory_fn(self):
         """The batched ``traj(masks (B, n, n), u_max (B,) | None, inner_steps,
-        dt)`` → (B, S+1, n, n, 3): the plain PyTorch version of K2. The
-        solver is natively batched, so this is ``make_trajectory_fn`` itself
-        (JAX's is its ``vmap``)."""
-        return self.make_trajectory_fn()
+        dt)`` → (B, S+1, n, n, 3): the plain PyTorch version of K2.
+        ``inner_steps`` and ``dt`` are scalars or one value per image; the
+        images are grouped by (dt, inner_steps) and each group runs through
+        ``make_trajectory_fn`` (natively batched; JAX's is its ``vmap``)."""
+        one = self.make_trajectory_fn()
+
+        def traj(masks: torch.Tensor, u_max=None, inner_steps=None, dt=None):
+            if _is_scalar(inner_steps) and _is_scalar(dt):
+                return one(masks, u_max, inner_steps, dt)
+            B = masks.shape[0]
+            if B == 0:
+                return one(masks, u_max, 0, None)
+            steps = per_image_steps(self, inner_steps, B)
+            dts = per_image_dt(self, dt, B)
+            um = u_max
+            if isinstance(u_max, torch.Tensor) and u_max.ndim > 0:
+                um = u_max.to(masks.device).reshape(B)
+            out = None
+            for d, k in sorted(set(zip(dts.tolist(), steps.tolist()))):
+                idx = np.nonzero((dts == np.float32(d)) & (steps == k))[0]
+                sel = torch.as_tensor(idx, device=masks.device)
+                frames = one(masks[sel], um[sel] if isinstance(um, torch.Tensor) and
+                             um.ndim > 0 else um, int(k), d)
+                if out is None:
+                    out = frames.new_empty((B, *frames.shape[1:]))
+                out[sel] = frames
+            return out
+
+        return traj

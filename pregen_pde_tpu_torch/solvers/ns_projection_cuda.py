@@ -4,53 +4,60 @@
 The kernel (``csrc/ns_projection_step.cu``) replaces the Pallas TPU kernel
 ``pregen_pde_tpu/solvers/ns_projection_pallas.py::build_batched_traj`` and
 computes ``ProjectionSolver.step`` iterated as in ``make_trajectory_fn``
-with the direct (DCT eigen) pressure solve. A step is seven launches
-(predictor, divergence, four shared-memory tiled SGEMMs for the two DCT
-transforms, correction) looped over ``inner_steps`` by the C entry point;
-a snapshot is one more launch.
+with the direct (DCT eigen) pressure solve. A call is one launch: each
+image is held by a thread-block cluster of n/16 blocks in shared memory for
+all of its steps, with the four DCT products on tensor cores (3xTF32), and
+its frames are written straight into the output. ``inner_steps`` and ``dt``
+are scalars or one value per image, read by the kernel from device arrays,
+so images of different CFL sub-buckets and retry attempts share a launch.
 
 For a CPU tensor ``traj`` runs the plain PyTorch version
 (``ProjectionSolver.make_batched_trajectory_fn``); for a CUDA tensor it
 launches the kernel or raises. ``launches`` counts the CUDA kernels the
-stepper enqueued: each C entry point reports its own count and the wrapper
+stepper enqueued: the C entry point reports its own count and the wrapper
 adds it once the call returned without an error.
 
 Not ported from the TPU kernel: the image grouping and the bf16 solve with
-its refinement step (TPU-only: the CUDA kernel solves in float32).
+its refinement step (TPU-only: the CUDA kernel solves at float32 accuracy).
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
-import numpy as np
 import torch
 
 from pregen_pde_tpu_torch.kernels import build as _build
-from pregen_pde_tpu_torch.solvers.ns_projection import ProjectionSolver, constants
+from pregen_pde_tpu_torch.solvers.ns_projection import (
+    ProjectionSolver, constants, per_image_dt, per_image_steps)
 
-__all__ = ["LIB_NAME", "build_batched_traj", "supported", "launches", "reset_launches"]
+__all__ = ["LIB_NAME", "build_batched_traj", "supported", "launches", "reset_launches",
+           "max_active_clusters", "fragment_order"]
 
 LIB_NAME = "ns_projection_step"
 ADVECTIONS = ("muscl", "upwind1")  # upwind2 exists only in the plain version
 MAX_N = 256
+NOT_RESIDENT = -2  # nsp_traj's code when no cluster of the size fits the card
 
 launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_L = ctypes.c_longlong
-_N = ctypes.POINTER(ctypes.c_int)  # out: kernels launched
+_N = ctypes.POINTER(ctypes.c_int)  # out: kernels launched / clusters
 _ARGTYPES = {
-    "nsp_init": [_P] * 5 + [_I] * 3 + [_P, _L, _P, _N],
-    "nsp_advance": [_P] * 15 + [_I] * 5 + [_F] * 5 + [_P, _L, _P, _N],
+    "nsp_traj": [_P] * 10 + [_I] * 5 + [_F] * 4 + [_P, _P, _N],
+    "nsp_max_active_clusters": [_I, _N],
 }
 
 
 def supported(solver: ProjectionSolver) -> bool:
     """Configs the CUDA kernel handles: the direct pressure solve, MUSCL or
-    upwind1 advection, and n a multiple of 32 (the GEMM tile) up to 256."""
+    upwind1 advection, and n a multiple of 32 up to 256 (a cluster of n/16
+    blocks, 16 rows each; above 128 a non-portable cluster of up to 16).
+    Every such n runs through the one cluster-resident kernel; there is no
+    other route."""
     cfg = solver.cfg
     n = cfg.resolution
     return (cfg.pressure_solver == "direct" and cfg.advection in ADVECTIONS
@@ -79,23 +86,53 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _call_stepper(fn: str, *args) -> None:
-    """Call one of the stepper's entry points, raise on its
-    ``cudaGetLastError()`` code, then add the kernels it launched."""
-    global launches
-    n = ctypes.c_int(0)
-    rc = getattr(_lib(), fn)(*args, ctypes.byref(n))
+def _check(fn: str, rc: int, n: int) -> None:
+    if rc == NOT_RESIDENT:
+        raise RuntimeError(f"{LIB_NAME}.{fn}: no cluster of {n // 16} blocks for "
+                           f"n = {n} fits this card (cudaOccupancyMaxActiveClusters = 0)")
     if rc != 0:
         raise RuntimeError(f"{LIB_NAME}.{fn} failed with CUDA error {rc}")
-    launches += n.value
+
+
+def fragment_order(m: torch.Tensor) -> torch.Tensor:
+    """An (n, n) B operand in the kernel's fragment order, (n/16, n/8, 32,
+    4): ``[kp, j, 4g + t, e] = m[16 kp + 8 (e // 2) + 4 (e % 2) + t, 8 j + g]``,
+    the m16n8k8 B fragments of lane 4g + t for the two k-steps of k-pair kp
+    and the 8-column tile j (``frag_index`` in the kernel source)."""
+    n = m.shape[0]
+    kp = torch.arange(n // 16, device=m.device).view(-1, 1, 1, 1)
+    j = torch.arange(n // 8, device=m.device).view(1, -1, 1, 1)
+    lane = torch.arange(32, device=m.device).view(1, 1, -1, 1)
+    e = torch.arange(4, device=m.device).view(1, 1, 1, -1)
+    return m[16 * kp + 8 * (e // 2) + 4 * (e % 2) + lane % 4, 8 * j + lane // 4].contiguous()
+
+
+@lru_cache(maxsize=16)
+def _kernel_bases(solver: ProjectionSolver, device: str) -> dict:
+    """The constants plus CX and CX^T in fragment order and 1/denom (from
+    float64, rounded once; read-only)."""
+    c = dict(constants(solver, torch.float32, device))
+    c["inv_denom"] = (1.0 / constants(solver, torch.float64, "cpu")["denom"]).to(
+        device=device, dtype=torch.float32)
+    c["cx_frag"] = fragment_order(c["cx"])
+    c["cxT_frag"] = fragment_order(c["cxT"])
+    return c
+
+
+def max_active_clusters(n: int) -> int:
+    """How many n² clusters (images) the card holds at once."""
+    out = ctypes.c_int(0)
+    _check("nsp_max_active_clusters", _lib().nsp_max_active_clusters(n, ctypes.byref(out)), n)
+    return out.value
 
 
 def build_batched_traj(solver: ProjectionSolver):
     """``traj(masks (B, n, n), u_max (B,) | None, inner_steps=None, dt=None)``
     → (B, n_snapshots+1, n, n, 3) float32 [u, v, p], frame 0 = rest + BCs;
     the same contract as the plain batched trajectory. ``inner_steps`` and
-    ``dt`` are scalars shared by the batch and runtime arguments of the
-    kernel: one build serves every bucket and every dt."""
+    ``dt`` are scalars shared by the batch or one value per image (dt is
+    rounded once to float32); the kernel reads both from device arrays, so
+    one build serves every bucket, every dt and every mix of them."""
     cfg = solver.cfg
     if not supported(solver):
         raise ValueError(unsupported_reason(solver))
@@ -105,45 +142,38 @@ def build_batched_traj(solver: ProjectionSolver):
     plain = solver.make_batched_trajectory_fn()
 
     def traj(masks: torch.Tensor, u_max=None, inner_steps=None, dt=None) -> torch.Tensor:
+        global launches
         if masks.ndim != 3 or tuple(masks.shape[1:]) != (n, n):
             raise ValueError(f"masks must be (B, {n}, {n}), got {tuple(masks.shape)}")
         B = masks.shape[0]
         dev = masks.device
-        steps = solver.default_inner_steps() if inner_steps is None else int(inner_steps)
-        dt_f = float(np.float32(cfg.dt if dt is None else float(dt)))
+        if dev.type == "cpu":
+            return plain(masks, u_max, inner_steps, dt)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        steps = per_image_steps(solver, inner_steps, B)
+        dts = per_image_dt(solver, dt, B)
         um = torch.as_tensor(cfg.u_max if u_max is None else u_max, dtype=torch.float32,
                              device=dev)
         um = (um.expand(B) if um.ndim == 0 else um.reshape(B)).contiguous()
-        if dev.type == "cpu":
-            return plain(masks, um, steps, dt_f)
-        if dev.type != "cuda":
-            raise ValueError(f"unsupported device {dev}")
-        if steps < 0:
-            raise ValueError(f"inner_steps must be >= 0, got {steps}")
         m = masks.to(torch.float32).contiguous()
-        c = constants(solver, torch.float32, dev)
-        U, V, US, VS, R, T, P = (torch.empty((B, n, n), dtype=torch.float32, device=dev)
-                                 for _ in range(7))
+        c = _kernel_bases(solver, str(dev))
+        steps_d = torch.as_tensor(steps, dtype=torch.int32).to(dev)
+        dt_d = torch.as_tensor(dts, dtype=torch.float32).to(dev)
         out = torch.empty((B, S + 1, n, n, 3), dtype=torch.float32, device=dev)
-        img_stride = (S + 1) * n * n * 3
-        frame_bytes = n * n * 3 * 4
-        channel = int(cfg.domain == "channel")
+        launched = ctypes.c_int(0)
         with torch.cuda.device(dev):
             st = torch.cuda.current_stream(dev).cuda_stream
-            _call_stepper("nsp_init", U.data_ptr(), V.data_ptr(), P.data_ptr(),
-                          um.data_ptr(), c["inlet"].data_ptr(), B, n, channel,
-                          out.data_ptr(), img_stride, st)
-            for s in range(S):
-                _call_stepper(
-                    "nsp_advance", U.data_ptr(), V.data_ptr(), US.data_ptr(),
-                    VS.data_ptr(), R.data_ptr(), T.data_ptr(), P.data_ptr(),
-                    m.data_ptr(), um.data_ptr(), c["inlet"].data_ptr(),
-                    c["cy"].data_ptr(), c["cyT"].data_ptr(), c["cx"].data_ptr(),
-                    c["cxT"].data_ptr(), c["denom"].data_ptr(), B, n, channel,
-                    int(cfg.advection == "muscl"), steps, dt_f, float(cfg.viscosity),
-                    float(cfg.penalization_eta), dx, dx * dx,
-                    out.data_ptr() + (s + 1) * frame_bytes, img_stride, st)
-        # the scratch planes may be freed while kernels are queued: the
+            rc = _lib().nsp_traj(
+                m.data_ptr(), um.data_ptr(), dt_d.data_ptr(), steps_d.data_ptr(),
+                c["inlet"].data_ptr(), c["cy"].data_ptr(), c["cyT"].data_ptr(),
+                c["cx_frag"].data_ptr(), c["cxT_frag"].data_ptr(), c["inv_denom"].data_ptr(), B, n,
+                int(cfg.domain == "channel"), int(cfg.advection == "muscl"), S,
+                float(cfg.viscosity), float(cfg.penalization_eta), dx, dx * dx,
+                out.data_ptr(), st, ctypes.byref(launched))
+        _check("nsp_traj", rc, n)
+        launches += launched.value
+        # the argument arrays may be freed while the kernel is queued: the
         # caching allocator reuses them only in this stream's order
         return out
 

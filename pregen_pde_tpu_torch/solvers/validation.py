@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from pregen_pde_tpu_torch.solvers.ns_projection import ProjectionConfig, ProjectionSolver
+from pregen_pde_tpu_torch.utils.device import resolve_device
 
 # Ghia, Ghia & Shin, J. Comput. Phys. 48 (1982), tables I & II: u along the
 # vertical centreline (x=0.5) at stations GHIA_Y, v along the horizontal
@@ -59,14 +60,15 @@ def _cavity_solver(re: float, n: int, advection: str) -> tuple:
 
 def run_cavity(re: float, n: int = 128, advection: str = "muscl",
                t_end: float | None = None, steady_tol: float = 1e-6,
-               device: str | torch.device = "cpu") -> dict:
-    """Integrate the lid-driven cavity to steady state on ``device`` → the
-    centreline profiles at the Ghia stations and their deviations."""
+               device: str | torch.device = "cuda") -> dict:
+    """Integrate the lid-driven cavity to steady state on ``device`` (the
+    card by default; raises where there is none) → the centreline profiles
+    at the Ghia stations and their deviations."""
     sol, _, dt = _cavity_solver(re, n, advection)
     t_end = t_end or (30.0 if re <= 100 else 50.0)
     chunks = max(int(t_end / dt) // CHUNK, 1)
     sol = ProjectionSolver(dataclasses.replace(sol.cfg, n_snapshots=chunks))
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type == "cuda":
         from pregen_pde_tpu_torch.solvers import ns_projection_cuda as npc
 

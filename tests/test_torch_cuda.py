@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from pregen_pde_tpu_torch.core import NSVorticityConfig
-from pregen_pde_tpu_torch.datagen.masked_ns import MaskedNSConfig, sample_masks
+from pregen_pde_tpu_torch.datagen.masked_ns import MaskedNSConfig, cfl_dt, sample_masks
 from pregen_pde_tpu_torch.ops import stencil
 from pregen_pde_tpu_torch.solvers import ns_projection_cuda as npc
 from pregen_pde_tpu_torch.solvers import spectral_ns_cuda as snc
@@ -70,24 +70,51 @@ def test_k1_kernel_matches_plain(output):
 K2_VS_PLAIN_BAR = 7e-5
 
 
+def _k2_inputs(n, domain, B=4):
+    """fpo_multi_hole (channel) or ldc masks, u_max across Re 100..10000,
+    each image at its own CFL dt and its own step count."""
+    pipeline = "fpo_multi_hole" if domain == "channel" else "ldc_regular"
+    cfg = MaskedNSConfig(pipeline=pipeline, resolution=n)
+    masks = sample_masks(torch.Generator(device="cuda").manual_seed(n), cfg, B)
+    u_max = torch.linspace(100, 10000, B, device="cuda") * 1.5e-5 / 2.0
+    # each image's CFL dt, capped as the pipeline caps it
+    dt = torch.tensor([cfl_dt(cfg, float(u)) for u in u_max], device="cuda")
+    steps = torch.arange(10, 10 - 2 * B, -2).clamp(min=1)
+    return masks, u_max, steps, dt
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [32, 96, 128, 256])
 @pytest.mark.parametrize("domain", ["channel", "cavity"])
-def test_k2_kernel_matches_plain(n, domain):
+@pytest.mark.parametrize("advection", ["muscl", "upwind1"])
+def test_k2_kernel_matches_plain(n, domain, advection):
+    """Per-image dt and step counts in one launch, per snapshot."""
     _need_cuda()
-    B = 4
-    sol = ProjectionSolver(ProjectionConfig(resolution=n, domain=domain, n_snapshots=3))
-    pipeline = "fpo_multi_hole" if domain == "channel" else "ldc_regular"
-    masks = sample_masks(torch.Generator(device="cuda").manual_seed(n),
-                         MaskedNSConfig(pipeline=pipeline, resolution=n), B)
-    u_max = torch.linspace(100, 10000, B, device="cuda") * 1.5e-5 / 2.0
-    dt = 0.5 * (2.0 / n) / (3.5 * float(u_max.max()))  # the batch's smallest CFL dt
-    got = npc.build_batched_traj(sol)(masks, u_max, 10, dt)
-    ref = sol.make_batched_trajectory_fn()(masks, u_max, 10, dt)
+    sol = ProjectionSolver(ProjectionConfig(resolution=n, domain=domain, n_snapshots=3,
+                                            advection=advection))
+    masks, u_max, steps, dt = _k2_inputs(n, domain)
+    got = npc.build_batched_traj(sol)(masks, u_max, steps, dt)
+    ref = sol.make_batched_trajectory_fn()(masks, u_max, steps, dt)
     torch.cuda.synchronize()
-    assert got.shape == ref.shape == (B, 4, n, n, 3)
+    assert got.shape == ref.shape == (4, 4, n, n, 3)
     assert torch.isfinite(got).all()
     assert per_snapshot_rel_l2(got, ref).max() <= K2_VS_PLAIN_BAR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", ["channel", "cavity"])
+def test_k2_batch_permutation(domain):
+    """Each image is its own cluster: permuting the batch permutes the
+    output to the bit."""
+    _need_cuda()
+    sol = ProjectionSolver(ProjectionConfig(resolution=128, domain=domain, n_snapshots=2))
+    masks, u_max, steps, dt = _k2_inputs(128, domain)
+    traj = npc.build_batched_traj(sol)
+    perm = torch.tensor([2, 0, 3, 1])
+    got = traj(masks, u_max, steps, dt)
+    permuted = traj(masks[perm.cuda()], u_max[perm.cuda()], steps[perm], dt[perm.cuda()])
+    torch.cuda.synchronize()
+    assert torch.equal(permuted, got[perm.cuda()])
 
 
 @pytest.mark.cuda
@@ -96,9 +123,11 @@ def test_k2_launch_count():
     sol = ProjectionSolver(ProjectionConfig(resolution=128, n_snapshots=2))
     npc.reset_launches()
     npc.build_batched_traj(sol)(torch.zeros((2, 128, 128), device="cuda"), None, 3, 0.01)
+    masks, u_max, steps, dt = _k2_inputs(128, "channel")
+    npc.build_batched_traj(sol)(masks, u_max, steps, dt)
     torch.cuda.synchronize()
-    # init + frame 0, then per snapshot 3 steps × 7 launches + the frame
-    assert npc.launches == 2 + 2 * (3 * 7 + 1)
+    # one launch a call: every image, snapshot and step of it
+    assert npc.launches == 2
 
 
 # K4 and K3 against their plain versions, relative L2: chip_smoke.py's

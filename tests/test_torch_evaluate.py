@@ -71,8 +71,8 @@ def test_slice_matches_jax_evaluate(tmp_path):
     apply = jax.jit(jm.apply)
     ref = {"patterns": jax_evaluate_patterns(apply, params, jtest, PATTERNS, batch_size=16),
            "accumulation": jax_accumulation_error(apply, params, jtest, max_steps=7)}
-    got = {"patterns": evaluate_patterns(model, ttest, PATTERNS, batch_size=16),
-           "accumulation": accumulation_error(model, ttest, max_steps=7)}
+    got = {"patterns": evaluate_patterns(model, ttest, PATTERNS, batch_size=16, device="cpu"),
+           "accumulation": accumulation_error(model, ttest, max_steps=7, device="cpu")}
     ref_v, got_v = _flat_values(ref), _flat_values(got)
     assert ref_v.keys() == got_v.keys() and len(got_v) == 3 * 5 + 7 * 3
     for k in ref_v:

@@ -72,7 +72,8 @@ def test_cfl_dt_masks_and_guards():
 def _fake_traj_factory(calls, poison_first=False):
     def factory(solver, device):
         def traj(masks, u_max, inner, dt):
-            calls.append((to_numpy(u_max).copy(), float(dt), int(inner)))
+            calls.append((to_numpy(u_max).copy(), to_numpy(dt).astype(np.float64),
+                          to_numpy(inner).astype(np.int64)))
             out = torch.ones((masks.shape[0], solver.cfg.n_snapshots + 1,
                               masks.shape[1], masks.shape[2], 3))
             if poison_first and len(calls) == 1:
@@ -86,8 +87,9 @@ def _fake_traj_factory(calls, poison_first=False):
 
 def test_per_trajectory_cfl_dt_subbuckets(monkeypatch):
     """Port of test_masked_ns_datagen.py's sub-bucket test: trajectories of
-    one horizon bucket whose CFL dt differ by a power-of-two level run as
-    separate sub-buckets at their own dt."""
+    one horizon bucket whose CFL dt differ by a power-of-two level form
+    separate sub-buckets, each row at its sub-bucket's dt; the batch runs as
+    one call with per-row dt and inner steps, longest first."""
     calls = []
     monkeypatch.setattr(tm, "_batched_traj_for", _fake_traj_factory(calls))
     re_vals = np.array([2000.0, 20000.0, 20000.0, 2000.0])
@@ -100,21 +102,33 @@ def test_per_trajectory_cfl_dt_subbuckets(monkeypatch):
     stats = tm.new_stats()
     out = tm.generate_masked_ns_batch(torch.Generator().manual_seed(0), cfg, 4, stats=stats)
     assert np.isfinite(out).all()
-    assert len(calls) == 2 == stats["sub_buckets"]  # one launch per dt level
+    assert len(calls) == 1  # one call for the whole batch
+    assert stats == {"sub_buckets": 2, "retries": 0, "retried_trajectories": 0, "calls": 1}
     u_slow = 2000.0 * cfg.viscosity / cfg.length
     u_fast = 20000.0 * cfg.viscosity / cfg.length
-    by_dt = sorted(calls, key=lambda c: -c[1])
-    assert by_dt[0][1] == pytest.approx(tm.cfl_dt(cfg, u_slow)) == pytest.approx(cfg.dt)
-    assert by_dt[1][1] == pytest.approx(tm.cfl_dt(cfg, u_fast))
-    assert by_dt[1][1] < cfg.dt
-    np.testing.assert_allclose(by_dt[0][0], u_slow, rtol=1e-6)
-    np.testing.assert_allclose(by_dt[1][0], u_fast, rtol=1e-6)
-    assert by_dt[0][2] < by_dt[1][2]
+    # the plan: two sub-buckets, one per dt level, at their members' own dt
+    plan = tm.plan_sub_buckets(re_vals * cfg.viscosity / cfg.length, np.full(4, 1.0), cfg)
+    assert [sorted(idx.tolist()) for idx, _, _ in plan] == [[0, 3], [1, 2]]
+    assert plan[0][2] == pytest.approx(tm.cfl_dt(cfg, u_slow)) == pytest.approx(cfg.dt)
+    assert plan[1][2] == pytest.approx(tm.cfl_dt(cfg, u_fast)) and plan[1][2] < cfg.dt
+    u, dt, inner = calls[0]
+    assert len(u) == len(dt) == len(inner) == 4
+    fast = np.isclose(u, u_fast, rtol=1e-6)
+    assert fast.sum() == 2 and np.isclose(u[~fast], u_slow, rtol=1e-6).all()
+    np.testing.assert_allclose(dt[fast], tm.cfl_dt(cfg, u_fast), rtol=1e-12)
+    np.testing.assert_allclose(dt[~fast], cfg.dt, rtol=1e-12)
+    # each row's inner steps from its own dt: round(horizon/dt) // n_snapshots
+    for d, k in zip(dt, inner):
+        assert k == max(int(round(1.0 / d)) // cfg.n_snapshots, 1)
+    assert inner[~fast].max() < inner[fast].min()
+    assert fast[:2].all()  # longest trajectories first
+    assert (np.diff(inner) <= 0).all()
 
 
 def test_nonfinite_bucket_retry(monkeypatch):
     """Port of test_masked_ns_datagen.py's retry test: a non-finite row
-    re-runs alone at dt/2, so the count stays exact."""
+    re-runs alone at its dt/2, so the count stays exact; the retry counts
+    once for its sub-bucket."""
     calls = []
     monkeypatch.setattr(tm, "_batched_traj_for", _fake_traj_factory(calls, True))
     cfg = tm.MaskedNSConfig(pipeline="fpo_regular", resolution=16, n_snapshots=2,
@@ -123,9 +137,13 @@ def test_nonfinite_bucket_retry(monkeypatch):
     out = tm.generate_masked_ns_batch(torch.Generator().manual_seed(0), cfg, 4, stats=stats)
     assert np.isfinite(out).all()
     assert len(calls) == 2 and stats == {"sub_buckets": 1, "retries": 1,
-                                         "retried_trajectories": 1}
-    assert calls[1][1] == pytest.approx(calls[0][1] / 2.0)
-    assert len(calls[1][0]) == 1  # only the bad row re-runs
+                                         "retried_trajectories": 1, "calls": 2}
+    (u0, dt0, inner0), (u1, dt1, inner1) = calls
+    assert len(u0) == 4 and len(u1) == 1  # only the bad row re-runs
+    assert u1[0] == u0[0]
+    assert dt1[0] == pytest.approx(dt0[0] / 2.0)
+    horizon = float(tsched.end_time_from_re(torch.tensor([cfg.re_mean]))[0]) * cfg.time_scale
+    assert inner1[0] == max(int(round(horizon / dt1[0])) // cfg.n_snapshots, 1)
 
 
 def test_cli_masked_generate_writes_readable_shards(tmp_path, capsys):
@@ -142,6 +160,7 @@ def test_cli_masked_generate_writes_readable_shards(tmp_path, capsys):
     assert lines[0] == {"kernel_launches": {"spectral_ns_step": 0, "ns_projection_step": 0,
                                             "stencil": 0}}
     assert lines[1]["masked_ns"]["sub_buckets"] >= 2 and lines[1]["masked_ns"]["retries"] == 0
+    assert lines[1]["masked_ns"]["calls"] == 2  # one a batch: 3 trajectories in batches of 2
     main(base + ["--n", "5", "--resume"])
     assert load_shards(out).shape == (5, 21, 32, 32, 6)
     np.testing.assert_array_equal(load_shards(out)[:3], data)

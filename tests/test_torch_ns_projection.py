@@ -193,9 +193,105 @@ def test_run_cavity_matches_jax_and_ghia_tables():
         np.testing.assert_array_equal(tval.GHIA_V[re], jval.GHIA_V[re])
     # one 1000-step chunk at 32² (t_end 12 / dt 0.00625 → 1920 steps → 1 chunk)
     ref = jval.run_cavity(100, n=32, t_end=12.0)
-    got = tval.run_cavity(100, n=32, t_end=12.0)
+    got = tval.run_cavity(100, n=32, t_end=12.0, device="cpu")
     assert got["steps"] == 1000
     for key in ("u_model", "v_model"):
         np.testing.assert_allclose(got[key], ref[key], rtol=0, atol=1e-5)
     for key in ("max_abs_dev_u", "max_abs_dev_v", "u_min_model", "v_min_model"):
         assert abs(got[key] - ref[key]) <= 1e-5, key
+
+
+# per-image (dt, inner_steps): two groups, interleaved in the batch
+MIXED_DT = np.array([0.004, 0.002, 0.004, 0.002])
+MIXED_STEPS = np.array([2, 3, 2, 3])
+
+
+def _mixed_inputs(dtype):
+    rng = np.random.default_rng(5)
+    mask = np.stack([np.asarray(jdisk(N, 16.0, 8.0 + 2 * i, 4.0), np.float64)
+                     for i in range(4)])
+    um = rng.uniform(0.5, 1.5, size=4)
+    return to_torch(mask, dtype=dtype), to_torch(um, dtype=dtype)
+
+
+@pytest.mark.parametrize("domain", DOMAINS)
+def test_batched_per_image_dt_steps_equals_grouped_calls(domain):
+    """The plain batched trajectory with one (dt, inner_steps) per image is
+    the scalar call of each group, stacked, to the bit; the CUDA wrapper
+    runs it for CPU tensors."""
+    _, tsol = _solvers(domain, n_snapshots=2)
+    masks, um = _mixed_inputs(torch.float32)
+    traj = tsol.make_batched_trajectory_fn()
+    got = traj(masks, um, torch.as_tensor(MIXED_STEPS), torch.as_tensor(MIXED_DT))
+    assert got.shape == (4, 3, N, N, 3) and got.dtype == torch.float32
+    for dt, k in ((0.004, 2), (0.002, 3)):
+        idx = torch.as_tensor(np.nonzero(MIXED_DT == dt)[0])
+        ref = traj(masks[idx], um[idx], k, dt)
+        assert torch.equal(got[idx], ref)
+    npc.reset_launches()
+    wrapped = npc.build_batched_traj(tsol)(masks, um, MIXED_STEPS, MIXED_DT)
+    assert npc.launches == 0 and torch.equal(wrapped, got)
+    # scalars and (B,) arrays of one value give the same batch
+    same = traj(masks, um, np.full(4, 2), np.full(4, 0.004))
+    assert torch.equal(same, traj(masks, um, 2, 0.004))
+    with pytest.raises(ValueError, match="inner_steps"):
+        traj(masks, um, np.array([2, -1, 2, 2]), MIXED_DT)
+
+
+def _jax_traj_f64(jsol, mask, u_max, inner, dt):
+    """make_trajectory_fn's loop (rest + BCs, then ``inner`` JAX steps per
+    snapshot) in float64: JAX's own function fixes a float32 carry."""
+    n = jsol.cfg.resolution
+    dx = jsol.cfg.length / n
+    z = jnp.zeros((n, n), jnp.float64)
+    u, v = jsol.apply_velocity_bc(z, z, u_max)
+    p = z
+    frames = [jnp.stack([u, v, p], axis=-1)]
+    for _ in range(jsol.cfg.n_snapshots):
+        for _ in range(inner):
+            u, v, p = jsol.step(u, v, mask, dx, dt, u_max, p_prev=p)
+        frames.append(jnp.stack([u, v, p], axis=-1))
+    return jnp.stack(frames)
+
+
+@pytest.mark.parametrize("domain", DOMAINS)
+def test_batched_per_image_dt_steps_matches_jax_f64(domain):
+    """Each image of the per-image batch against JAX on that image with its
+    own dt and inner steps: make_trajectory_fn's loop in float64 (dt rounded
+    to float32 in both) at 1e-10, and make_trajectory_fn itself in float32."""
+    jsol, tsol = _solvers(domain, n_snapshots=2)
+    traj = tsol.make_batched_trajectory_fn()
+    steps, dts = torch.as_tensor(MIXED_STEPS), torch.as_tensor(MIXED_DT)
+    masks, um = _mixed_inputs(torch.float64)
+    got = traj(masks, um, steps, dts)
+    _close(got, [_jax_traj_f64(jsol, jnp.asarray(to_numpy(masks[i])), float(um[i]),
+                               int(MIXED_STEPS[i]), float(np.float32(MIXED_DT[i])))
+                 for i in range(4)])
+    masks, um = _mixed_inputs(torch.float32)
+    got = to_numpy(traj(masks, um, steps, dts))
+    jtraj = jsol.make_trajectory_fn()
+    for i in range(4):
+        ref = np.asarray(jtraj(jnp.asarray(to_numpy(masks[i])), jnp.float32(um[i]),
+                               int(MIXED_STEPS[i]), float(MIXED_DT[i])))
+        assert np.abs(got[i] - ref).max() / np.abs(ref).max() <= 1e-5
+
+
+@pytest.mark.parametrize("n", [32, 128])
+def test_k2_fragment_order_layout(n):
+    """The bases the CUDA stepper reads in fragment order: the float4 of
+    (k-pair kp, tile j, lane 4g + t) holds the lane's m16n8k8 B fragments of
+    k-steps 2kp and 2kp + 1, and the flat layout is the kernel's
+    ``frag_index``."""
+    m = torch.as_tensor(np.random.default_rng(n).normal(size=(n, n)), dtype=torch.float32)
+    f = npc.fragment_order(m)
+    assert f.shape == (n // 16, n // 8, 32, 4) and f.is_contiguous()
+    for kp, j, g, t in ((0, 0, 0, 0), (n // 16 - 1, n // 8 - 1, 7, 3), (1, 2, 5, 1)):
+        want = [m[16 * kp + t, 8 * j + g], m[16 * kp + t + 4, 8 * j + g],
+                m[16 * kp + 8 + t, 8 * j + g], m[16 * kp + 12 + t, 8 * j + g]]
+        assert f[kp, j, 4 * g + t].tolist() == [float(w) for w in want]
+    # frag_index(r, c) of a 16-row slab (csrc/ns_projection_step.cu)
+    r, c = np.meshgrid(np.arange(16), np.arange(n), indexing="ij")
+    idx = ((((c >> 3) * 32 + (c & 7) * 4 + (r & 3)) << 2) + ((r >> 3) << 1) + ((r >> 2) & 1))
+    flat = f.reshape(n // 16, -1).numpy()
+    for kp in range(n // 16):
+        np.testing.assert_array_equal(flat[kp][idx], m[16 * kp:16 * kp + 16].numpy())

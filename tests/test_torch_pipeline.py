@@ -146,6 +146,15 @@ def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):
     assert not (tmp_path / "build").exists()
 
 
+def test_kernel_profiling_build_is_its_own_artifact():
+    """A build with -D defines (profile_k2's phase clocks) hashes to another
+    library than the plain build, so neither replaces the other."""
+    plain = kbuild.library_path("ns_projection_step")
+    prof = kbuild.library_path("ns_projection_step", defines=("NSP_PHASE_CLOCKS",))
+    assert plain != prof and prof.name.startswith("ns_projection_step_")
+    assert plain == kbuild.library_path("ns_projection_step", defines=())
+
+
 def test_port_imports_no_jax_or_triton():
     code = (
         "import sys\n"
