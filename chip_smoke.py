@@ -9,23 +9,35 @@ Phases (any failure exits nonzero; no phase catches a failure):
 2. build the CUDA kernels from ``pregen_pde_tpu_torch/csrc`` (seconds printed);
 3. the kernel's 2-D forward/inverse FFT passes vs ``torch.fft`` in float64,
    n ∈ {128, 256, 512, 1024}: relative L2 ≤ 2e-6;
-4. K1 (the CN+AB2 stepper) vs its plain version at the north-star
-   configuration (256², ν-scan, dt 1e-4, 2500 steps, 50 snapshots, FNO
-   forcing), B=4: per-snapshot relative L2 against the float64 plain
-   version (worst over the batch), in vorticity and fields output; bars at
-   snapshot 50: ≤ 2× the plain float32 path's own error and ≤ 2.6e-4 (the
-   f32 floor on record is 1.28e-4, PERF_TPU_HISTORY.md:792-818); and K1
-   against the plain float32 version on the same inputs, ≤ 1e-5 at every
-   snapshot. Then the main path's shape: B=8, fields, 20 snapshots × 275
-   steps (the shortest horizon at time-scale 5e-4), ν = 1/Re across the
-   Re range, K1 vs plain float32 ≤ 1e-5 at every snapshot;
+4. K1 (the CN+AB2 stepper; at 256² the cluster-resident kernel, one
+   launch a call) vs its plain version at the north-star configuration
+   (256², ν-scan, dt 1e-4, 2500 steps, 50 snapshots, FNO forcing), B=4:
+   per-snapshot relative L2 against the float64 plain version (worst over
+   the batch), in vorticity and fields output; bars at snapshot 50: ≤ 2×
+   the plain float32 path's own error and ≤ 2.6e-4 (the f32 floor on record
+   is 1.28e-4, PERF_TPU_HISTORY.md:792-818); and K1 against the plain
+   float32 version on the same inputs, ≤ 1e-5 at every snapshot. Then the
+   main path's shape: B=8, fields, 20 snapshots × 275 steps (the shortest
+   horizon at time-scale 5e-4), ν = 1/Re across the Re range, K1 vs plain
+   float32 ≤ 1e-5 at every snapshot. Then the main path's own batch (32
+   images of ``generate``'s seed-0 draws: its GRF initial fields, Re and
+   per-image inner steps at time-scale 1e-5, 5–13 steps a snapshot) as
+   one call: exactly one launch counted, per snapshot ≤ 1e-5 against the
+   plain float32 version run per horizon bucket as the plain methods run
+   them. Then the chain, the route of n ∈ {512, 1024}: 512², B=2, fields,
+   3 × 5 steps, ≤ 1e-5 per snapshot, its launches exactly;
 5. the main path: ``python -m pregen_pde_tpu_torch generate --workload
    ns_spectral --n 32 --resolution 256 --batch-size 32`` in a subprocess,
    whose shard must be (32, 21, 256, 256, 6), finite, mask ≡ 0, SDF ≡ 1,
-   Re_norm in [0, 1], and whose K1 launch count must be > 0;
+   Re_norm in [0, 1], and whose K1 launch count must be exactly 1 (the
+   batch is one call);
 6. north-star throughput (B=32) of K1 and of the plain version in both
    outputs, and K1 vs plain float32 on those inputs (relative L2 ≤ 1e-5 at
-   every snapshot).
+   every snapshot); the chain at the north star (fields), held to the same
+   bar; µs per trajectory-step at 256², B = 1, 8, 32, the resident kernel
+   against the chain (CUDA events, the difference of a 300- and a 100-step
+   call); the main path's batch at time-scale 5e-4 as the one call
+   ``generate`` makes, against its bound.
 
 7. K2 (the Chorin projection stepper, one cluster-resident launch a call)
    is built in phase 2, in parallel with K1 (one ``nvcc`` each); its build
@@ -252,8 +264,10 @@ def main() -> None:
     import numpy as np
 
     from pregen_pde_tpu_torch.core import NSVorticityConfig
+    from pregen_pde_tpu_torch.datagen.pipeline import (
+        GenerationConfig, _inner_steps, draw_batch_inputs)
     from pregen_pde_tpu_torch.datagen.writer import load_shards
-    from pregen_pde_tpu_torch.fields.grf import grf_2d
+    from pregen_pde_tpu_torch.fields.grf import grf_2d, grf_filter
     from pregen_pde_tpu_torch.kernels import build
     from pregen_pde_tpu_torch.solvers import ns_projection_cuda as npc
     from pregen_pde_tpu_torch.solvers import schedules
@@ -360,6 +374,59 @@ def main() -> None:
     say(f"[4] precision tiers -> kernel path: {json.dumps(snc.PRECISIONS)} "
         f"(all three run the one float32 CUDA-core path)")
 
+    def main_batch(time_scale):
+        """The main path's first batch as ``generate --n 32 --batch-size 32``
+        draws it (the CLI's seed for --seed 0): its initial fields, ν and
+        per-image inner steps at ``time_scale``."""
+        gcfg = GenerationConfig(solver=NSVorticityConfig(resolution=256), batch_size=32,
+                                time_scale=time_scale)
+        seed = int(np.random.SeedSequence([0, 0]).generate_state(1)[0])
+        xi, z_re = draw_batch_inputs(torch.Generator(device=dev).manual_seed(seed), gcfg)
+        re = schedules.sample_reynolds(z=z_re, mean=gcfg.re_mean, std=gcfg.re_std)
+        end_t = (schedules.end_time_from_re(re) * time_scale).cpu().numpy()
+        msol = NSVorticitySolver(gcfg.solver)
+        w0 = grf_filter(xi.to(torch.float32), msol.grid, gcfg.grf_alpha, gcfg.grf_tau,
+                        gcfg.grf_sigma)
+        inner = torch.as_tensor([_inner_steps(h, gcfg.solver) for h in end_t])
+        return msol, w0, schedules.viscosity_from_re(re).to(torch.float32), inner, end_t
+
+    # the main path's own batch as one launch, against the plain version
+    # run per horizon bucket (as the plain methods run it)
+    msol, w0_m, nu_m, inner_m, end_t = main_batch(1e-5)
+    snc.reset_launches()
+    k1 = snc.build_batched_traj(msol, output="fields")(w0_m, nu_m, inner_m)
+    torch.cuda.synchronize()
+    if snc.launches != 1:
+        fail(f"K1, the main path's batch: {snc.launches} launches for one call")
+    p32 = torch.empty_like(k1)
+    for h in np.unique(end_t):
+        rows = torch.as_tensor(np.nonzero(end_t == h)[0], device=dev)
+        p32[rows] = plain(msol, w0_m[rows], nu_m[rows], True, steps=int(inner_m[rows[0].item()]))
+    if not torch.isfinite(k1).all():
+        fail("K1, the main path's batch: non-finite output")
+    e_kp = k1_vs_plain(k1, p32, "the main path's batch in one launch")
+    say(f"[4] the main path's batch (32 images, generate's seed-0 draws, time-scale 1e-5: "
+        f"{len(np.unique(end_t))} horizon buckets, {int(inner_m.min())}..{int(inner_m.max())} "
+        f"steps a snapshot x 20) in one launch (exactly one counted): K1 vs plain f32 per "
+        f"bucket, per-snapshot rel L2 first / mid / last {e_kp[1]:.3e} / {e_kp[10]:.3e} / "
+        f"{e_kp[20]:.3e}, worst {e_kp.max():.3e} (bar {K1_VS_PLAIN_BAR:.0e})")
+
+    # the chain, K1's route at n in {512, 1024}
+    sol_c = NSVorticitySolver(NSVorticityConfig(resolution=512, viscosity=1e-3, dt=1e-3,
+                                                t_end=1.5e-2, n_snapshots=3,
+                                                include_initial=True, forcing="fno"))
+    w0_c = grf_2d(gdev, sol_c.grid, 2)
+    nu_c = torch.tensor([1e-3, 5e-4], device=dev)
+    snc.reset_launches()
+    k1 = snc.build_batched_traj(sol_c, output="fields")(w0_c, nu_c)
+    torch.cuda.synchronize()
+    # init 2 + a bootstrap step 3, 3 a step (3 x 5), a fields snapshot 4 (x 4)
+    if snc.launches != 5 + 3 * 15 + 4 * 4:
+        fail(f"K1 chain 512^2: {snc.launches} launches, not {5 + 3 * 15 + 4 * 4}")
+    e_kp = k1_vs_plain(k1, plain(sol_c, w0_c, nu_c, True), "the chain at 512^2")
+    say(f"[4] the chain at 512^2 (fields, B=2, 3 x 5 steps, {snc.launches} launches): K1 vs "
+        f"plain f32 worst snapshot {e_kp.max():.3e} (bar {K1_VS_PLAIN_BAR:.0e})")
+
     # -- 5. the main path, through the CLI ----------------------------------------
     snc.reset_launches()
     work = tempfile.mkdtemp(prefix="smoke_", dir=build.BUILD_DIR)
@@ -387,8 +454,8 @@ def main() -> None:
         re = data[..., 3]
         if not ((re >= 0).all() and (re <= 1).all()):
             fail("Re_norm outside [0, 1]")
-        if launches <= 0:
-            fail("the main path never launched K1")
+        if launches != 1:
+            fail(f"the main path launched K1 {launches} times, not once (one call a batch)")
         say(f"[5] generate --n 32 --resolution 256 --batch-size 32 (time-scale "
             f"5e-4, varied difficulty): {gen_s:.2f} s wall incl. start-up and "
             f"build, {32 / gen_s:.3f} traj/s; K1 launches {launches}; shard "
@@ -397,7 +464,7 @@ def main() -> None:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # -- 6. north-star throughput, B=32 -------------------------------------------
+    # -- 6. north-star throughput, B=32; the resident kernel against the chain -----------
     w0 = grf_2d(gdev, sol.grid, 32)
     times = {}
     outs = {}
@@ -416,13 +483,65 @@ def main() -> None:
             f"plain {32 / times[output, 'plain']:.3f} traj/s "
             f"({times[output, 'plain'] * 1e3:.1f} ms) | K1 vs plain f32 max "
             f"per-snapshot rel L2 {err.max():.3e} | {card}")
+    k1c = snc.build_batched_traj(sol, output="fields", route="chain")
+    k1c(w0, None, 1)
+    out_c, t_chain = timed(lambda: k1c(w0))
+    err = k1_vs_plain(out_c, outs["fields", "plain"], "north star, fields, B=32, the chain")
+    del out_c
     max_abs = float((outs["fields", "k1"] - outs["fields", "plain"]).abs().max())
     # K1's work: per image-step two packed inverse and one forward complex
     # FFT of n² points (5 n² log2 n² FLOP each; the pointwise algebra is not
     # counted); bytes: w0 and ν in, the (B, 51, n, n, 3) fields out
     n = sol.grid.n
-    k1_bound = bound(w0.numel() * 4 + outs["fields", "k1"].numel() * 4,
-                     32 * 2500 * 3 * 5 * n * n * np.log2(n * n))
+    fft_flop = 3 * 5 * n * n * np.log2(n * n)
+    k1_bound = bound(w0.numel() * 4 + outs["fields", "k1"].numel() * 4, 32 * 2500 * fft_flop)
+    del outs
+    say(f"[6] north star fields B=32: resident {times['fields', 'k1'] * 1e3:.1f} ms | chain "
+        f"{t_chain * 1e3:.1f} ms (chain vs plain f32 {err.max():.3e}) | bound "
+        f"{k1_bound[0]:.2f} ms ({k1_bound[1]}; {k1_bound[0] / (times['fields', 'k1'] * 1e3):.1%}"
+        f" reached) | {card}")
+
+    def us_per_traj_step(fn, B, short=100, long=300):
+        def run(steps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(steps)
+            b.record()
+            torch.cuda.synchronize()
+            return a.elapsed_time(b)
+
+        run(short)  # warm-up
+        return (run(long) - run(short)) / (long - short) / B * 1e3
+
+    sol1 = NSVorticitySolver(NSVorticityConfig(resolution=256, n_snapshots=1,
+                                               include_initial=False))
+    k1_r = snc.build_batched_traj(sol1)
+    k1_c = snc.build_batched_traj(sol1, route="chain")
+    per_step = {}
+    for B in (1, 8, 32):
+        wb = grf_2d(gdev, sol1.grid, B)
+        per_step[B] = (us_per_traj_step(lambda k: k1_r(wb, None, k), B),
+                       us_per_traj_step(lambda k: k1_c(wb, None, k), B))
+        bound_us = fft_flop / F32_FLOPS * 1e6
+        say(f"[6] 256^2 B={B}: resident {per_step[B][0]:.3f} us/traj-step | chain "
+            f"{per_step[B][1]:.3f} us/traj-step | bound {bound_us:.4f} us/traj-step "
+            f"(operations) | {card}")
+    # the main path's batch at time-scale 5e-4 as the one call of generate
+    msol, w0_m, nu_m, inner_m, _ = main_batch(5e-4)
+    k1_m = snc.build_batched_traj(msol, output="fields")
+    k1_m(w0_m[:1], nu_m[:1], 1)
+    snc.reset_launches()
+    out_m, t_m = timed(lambda: k1_m(w0_m, nu_m, inner_m))
+    img_steps = int(inner_m.sum()) * msol.cfg.n_snapshots
+    m_bound = bound(w0_m.numel() * 4 + out_m.numel() * 4, img_steps * fft_flop)
+    if snc.launches != 1 or not torch.isfinite(out_m).all():
+        fail(f"the main path's batch: {snc.launches} launches, finite "
+             f"{bool(torch.isfinite(out_m).all())}")
+    del out_m
+    say(f"[6] the main path's batch (32 images, time-scale 5e-4, {img_steps} image-steps, "
+        f"{int(inner_m.min()) * 20}..{int(inner_m.max()) * 20} steps a trajectory) as one "
+        f"launch: {t_m * 1e3:.1f} ms ({t_m / img_steps * 1e6:.3f} us/image-step) | bound "
+        f"{m_bound[0]:.2f} ms ({m_bound[1]}; {m_bound[0] / (t_m * 1e3):.1%} reached) | {card}")
     k1_line = {
         "name": snc.LIB_NAME,
         "route": "cuda",
@@ -435,6 +554,10 @@ def main() -> None:
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": None,
+        "chain_ms": t_chain * 1e3,
+        "main_path_batch_ms": t_m * 1e3,
+        "main_path_batch_bound_ms": m_bound[0],
+        "us_per_traj_step_resident_chain": {str(B): list(v) for B, v in per_step.items()},
     }
     k2_line, fpo = k2_phases(dev, card, builds[npc.LIB_NAME], t0_build)
     k3_line, k4_line = scot_phases(dev, card, builds, t0_build, fpo)

@@ -4,9 +4,13 @@ Output contract: float32 (or float16) (N, T, H, W, 6) with channels
 [Ux, Uy, p, Re_norm, mask, SDF], Re_norm = (Re − 100)/9900, mask 1 = hole.
 
 With ``vary_difficulty`` each trajectory draws Re ~ clip(N(5000, 2000²)),
-ν = 1/Re, and a band-law horizon; trajectories are bucketed by horizon, each
-bucket padded to a power of two by repeating its first index (the padded
-rows are dropped), and each bucket runs as one batched solve.
+ν = 1/Re, and a band-law horizon. On the plain methods trajectories are
+bucketed by horizon, each bucket padded to a power of two by repeating its
+first index (the padded rows are dropped), and each bucket runs as one
+batched solve, as in the JAX package. The CUDA kernel takes a step count
+per image, so there the whole batch is one call, each row at its bucket's
+inner steps: every row equals its bucket's result, and no padded row is
+computed.
 
 The random draws are split from the compute: ``draw_batch_inputs`` makes the
 GRF white noise ξ and the Re normal z from an explicit ``torch.Generator``,
@@ -113,6 +117,11 @@ def _pad_pow2(idx: np.ndarray) -> tuple[np.ndarray, int]:
     return np.concatenate([idx, np.full(size - n, idx[0])]), n
 
 
+def _inner_steps(horizon: float, cfg: NSVorticityConfig) -> int:
+    """A horizon in schedule seconds → solver steps a snapshot interval."""
+    return max(int(round(float(horizon) / cfg.dt)) // cfg.n_snapshots, 1)
+
+
 def draw_batch_inputs(generator: torch.Generator, gen_cfg: GenerationConfig,
                       n_traj: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(ξ (B, n, n) float32, z_re (B,) float64) on the generator's device."""
@@ -171,13 +180,17 @@ def generate_ns_batch_from_inputs(xi: torch.Tensor, z_re: torch.Tensor,
     end_t = (schedules.end_time_from_re(re) * gen_cfg.time_scale).cpu().numpy()
     re_norm = schedules.normalize_re(re)
     nu = schedules.viscosity_from_re(re)
+    if method in CUDA_METHODS:
+        # the kernel takes a step count per image: the whole batch is one
+        # call, each row at its own bucket's inner steps (no padding)
+        inner_rows = torch.as_tensor([_inner_steps(h, cfg) for h in end_t])
+        return fetch(bucket(w0_all, nu, re_norm, inner_rows))
     out = np.empty((n_traj, cfg.n_snapshots + int(cfg.include_initial), n, n, 6),
                    np.dtype(gen_cfg.storage_dtype))
     for horizon in np.unique(end_t):
         idx_raw = np.nonzero(end_t == horizon)[0]
         idx, n_real = _pad_pow2(idx_raw)
-        # horizon in schedule seconds → solver steps, split over the snapshots
-        inner = max(int(round(float(horizon) / cfg.dt)) // cfg.n_snapshots, 1)
+        inner = _inner_steps(horizon, cfg)
         sel = torch.as_tensor(idx, device=dev)
         res = bucket(w0_all[sel], nu[sel], re_norm[sel], inner)
         out[idx_raw] = fetch(res)[:n_real]

@@ -41,11 +41,12 @@ def test_fft2_passes_match_torch_fft_f64(n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 512])
 @pytest.mark.parametrize("output", ["vorticity", "fields"])
-def test_k1_kernel_matches_plain(output):
-    """The kernel vs its plain version (f32, on the CPU), per snapshot."""
+def test_k1_kernel_matches_plain(output, n):
+    """The kernel vs its plain version (f32, on the CPU), per snapshot: the
+    resident kernel at 128², the chain at 512²."""
     _need_cuda()
-    n = 128
     cfg = NSVorticityConfig(resolution=n, viscosity=1e-3, dt=1e-3, t_end=6e-3,
                             n_snapshots=3, include_initial=True, forcing="fno",
                             drag=0.1)
@@ -55,14 +56,51 @@ def test_k1_kernel_matches_plain(output):
     snc.reset_launches()
     got = snc.build_batched_traj(sol, output=output)(w0, nu)
     torch.cuda.synchronize()
-    # kernels enqueued: init 2 + a bootstrap step 3, 3 per step (3 intervals
-    # × 2 steps), a snapshot 2 (vorticity) or 4 (fields; also frame 0)
-    snaps = 3 if output == "vorticity" else 4
-    assert snc.launches == 5 + 3 * 6 + snaps * (2 if output == "vorticity" else 4)
+    if n in snc.RESIDENT_N:
+        # one launch a call: every image, step and frame of it
+        assert snc.launches == 1
+    else:
+        # the chain enqueues: init 2 + a bootstrap step 3, 3 per step (3
+        # intervals × 2 steps), a snapshot 2 (vorticity) or 4 (fields; also
+        # frame 0)
+        snaps = 3 if output == "vorticity" else 4
+        assert snc.launches == 5 + 3 * 6 + snaps * (2 if output == "vorticity" else 4)
     ref = snc.build_batched_traj(sol, output=output)(w0.cpu(), nu.cpu())
     assert got.shape == ref.shape
     # f32 roundoff over a few steps (~3e-7 measured on an H100)
     assert per_snapshot_rel_l2(got, ref).max() < 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 256])
+def test_k1_per_image_steps_and_order(n):
+    """Per-image ν and step counts in one launch, against the plain version
+    per step group; permuting the batch permutes the output to the bit."""
+    _need_cuda()
+    sol = NSVorticitySolver(NSVorticityConfig(resolution=n, viscosity=1e-3, dt=1e-3,
+                                              n_snapshots=2, include_initial=True,
+                                              forcing="fno"))
+    w0 = to_torch(np.random.default_rng(5).normal(size=(4, n, n)), "cuda", torch.float32)
+    nu = torch.tensor([1e-3, 2e-3, 5e-4, 1e-3], device="cuda")
+    steps = torch.tensor([3, 1, 4, 1])
+    traj = snc.build_batched_traj(sol, output="fields")
+    snc.reset_launches()
+    got = traj(w0, nu, steps)
+    torch.cuda.synchronize()
+    assert snc.launches == 1
+    ref = traj(w0.cpu(), nu.cpu(), steps)
+    assert per_snapshot_rel_l2(got, ref).max() < 2e-6
+    perm = torch.tensor([2, 0, 3, 1])
+    permuted = traj(w0[perm.cuda()], nu[perm.cuda()], steps[perm])
+    torch.cuda.synchronize()
+    assert torch.equal(permuted, got[perm.cuda()])
+
+
+@pytest.mark.cuda
+def test_k1_resident_clusters():
+    _need_cuda()
+    # the card holds at least one cluster of each resident grid
+    assert all(snc.max_active_clusters(n) > 0 for n in snc.RESIDENT_N)
 
 
 # K2 against its plain float32 version, per snapshot: chip_smoke.py phase

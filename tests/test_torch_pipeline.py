@@ -50,6 +50,42 @@ def test_slice_matches_jax_generate_ns_batch(vary):
     np.testing.assert_allclose(got[..., 3:], ref[..., 3:], rtol=1e-7, atol=0)
 
 
+def test_cuda_method_one_stepper_call_per_batch(monkeypatch):
+    """On the CUDA method the whole batch is one stepper call, each row at
+    its horizon bucket's inner steps; every row equals the bucketed plain
+    path's. The kernel wrapper runs its plain version on these CPU tensors,
+    behind a stub that counts the calls."""
+    from pregen_pde_tpu_torch.solvers import spectral_ns_cuda as tsnc
+
+    calls = []
+    real = tsnc.build_batched_traj
+
+    def counting(*args, **kwargs):
+        traj = real(*args, **kwargs)
+
+        def wrapped(w0, nu=None, inner_steps=None):
+            calls.append(inner_steps)
+            return traj(w0, nu, inner_steps)
+
+        return wrapped
+
+    monkeypatch.setattr(tsnc, "build_batched_traj", counting)
+    cfg = tpipe.GenerationConfig(solver=NSVorticityConfig(resolution=128, n_snapshots=2),
+                                 batch_size=4, time_scale=5e-7)
+    xi, z_re = tpipe.draw_batch_inputs(torch.Generator().manual_seed(2), cfg)
+    got = tpipe.generate_ns_batch_from_inputs(xi, z_re, dataclasses.replace(
+        cfg, method="cn_ab2_cuda"))
+    assert len(calls) == 1
+    inner = calls[0]
+    assert isinstance(inner, torch.Tensor) and inner.shape == (4,)
+    assert len(torch.unique(inner)) > 1  # several buckets in the one call
+    ref = tpipe.generate_ns_batch_from_inputs(xi, z_re, dataclasses.replace(
+        cfg, method="cn_ab2_packed"))
+    assert got.shape == ref.shape == (4, 3, 128, 128, 6)
+    for row in range(4):
+        assert rel_l2(got[row], ref[row]) <= 1e-6
+
+
 def test_pipeline_own_draws_storage_and_guards(tmp_path):
     cfg = tpipe.GenerationConfig(solver=NSVorticityConfig(resolution=32),
                                  batch_size=3, time_scale=1e-6)
