@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pregen_pde_tpu_torch.ops.cpb_bias import relative_position_bias
-from pregen_pde_tpu_torch.ops.swin_block import MAX_FUSED_DIM, fused_swin_block, pack_heads
+from pregen_pde_tpu_torch.ops.swin_block import MAX_FUSED_DIM, swin_block
 from pregen_pde_tpu_torch.ops.window_attention import window_attention
 
 IMPLS = ("auto", "xla", "plain", "fused")
@@ -296,21 +296,18 @@ class SwinLayerV2(nn.Module):
             bias = a.bias16()[None]
             if s:
                 bias = bias + self.attn_mask[:, None]
-            wq, wk, wv, wp = pack_heads(a.query.weight.T, a.key.weight.T, a.value.weight.T,
-                                        a.proj.weight.T, self.num_heads)
-            bq, bv = ((lin.bias if lin.bias is not None else x.new_zeros(c)).reshape(
-                self.num_heads, 1, c // self.num_heads) for lin in (a.query, a.value))
             ln1w, ln1b = self.norm1.affine(time, b)
             ln2w, ln2b = self.norm2.affine(time, b)
             dp = torch.stack([self.drop_path1.keep_mask(b, x.device),
                               self.drop_path2.keep_mask(b, x.device)], dim=1)
-            xs = torch.roll(x, (-s, -s), (1, 2)) if s else x
-            y = fused_swin_block(xs, bias, a.scale(), wq, bq, wk, wv, bv, wp,
-                                 a.proj.bias.reshape(1, c), ln1w, ln1b, self.mlp1.weight.T,
-                                 self.mlp1.bias.reshape(1, -1), self.mlp2.weight.T,
-                                 self.mlp2.bias.reshape(1, -1), ln2w, ln2b, dp,
-                                 self.num_heads, self.ws, self.norm1.eps)
-            return torch.roll(y, (s, s), (1, 2)) if s else y
+            # the parameters as they are; the shift is folded into the kernel's
+            # token addressing (no roll of the grid)
+            return swin_block(x.contiguous(), bias.contiguous(), a.scale(), a.query.weight,
+                              a.query.bias, a.key.weight, a.value.weight, a.value.bias,
+                              a.proj.weight, a.proj.bias, ln1w.contiguous(), ln1b.contiguous(),
+                              self.mlp1.weight, self.mlp1.bias, self.mlp2.weight, self.mlp2.bias,
+                              ln2w.contiguous(), ln2b.contiguous(), dp, self.num_heads, self.ws,
+                              self.norm1.eps, s)
 
         shortcut = x
         if s:
