@@ -11,8 +11,9 @@ picks the route; ``impl`` takes the place of the JAX ``use_pallas``:
   ``use_pallas=False``, the XLA route);
 - ``"laplacian"``: K5a (``ops/stencil.laplacian_cuda``) inside the eager
   Heun step (JAX's ``use_pallas=True``);
-- ``"fused"``: K5b (``ops/stencil.heat_advance``), the whole Heun step in
-  one kernel, all the steps of a snapshot in one call;
+- ``"fused"``: K5b (``ops/stencil.heat_trajectory``), the whole Heun step
+  in one kernel, the whole trajectory of a batch in one call (one launch on
+  the resident route);
 - ``"auto"``: ``"fused"`` on a CUDA device, ``"plain"`` elsewhere.
 
 On the CPU the K5a and K5b routes run the kernels' plain versions; on a
@@ -106,19 +107,17 @@ class HeatSolver:
 
         def traj(u0: torch.Tensor) -> torch.Tensor:
             dt = torch.tensor(cfg.dt, dtype=u0.dtype).item()
+            if self.route(u0.device) == "fused":
+                return stencil.heat_trajectory(u0, S, inner, self.dx, cfg.diffusivity, dt,
+                                               cfg.reaction)
             out = torch.empty((u0.shape[0], S + 1, *u0.shape[1:]), dtype=u0.dtype,
                               device=u0.device)
             out[:, 0] = u0
             u = u0
-            fused = self.route(u0.device) == "fused"
             for s in range(S):
-                if fused:
-                    u = stencil.heat_advance(u, inner, self.dx, cfg.diffusivity, dt,
-                                             cfg.reaction, frame=out[:, s + 1])
-                else:
-                    for _ in range(inner):
-                        u = self.step_heun(u, dt)
-                    out[:, s + 1] = u
+                for _ in range(inner):
+                    u = self.step_heun(u, dt)
+                out[:, s + 1] = u
             return out
 
         return traj

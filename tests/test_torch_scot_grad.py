@@ -88,6 +88,58 @@ def test_k4_backward_plain_matches_pallas_interpret(nb, n, c, h, nw):
         np.testing.assert_array_equal(b.numpy(), a.detach().numpy(), err_msg=name)
 
 
+@pytest.mark.parametrize("nb,n,hd,h,nw", [(4, 16, 32, 3, 1), (8, 16, 32, 2, 4)],
+                         ids=["stage3", "shifted"])
+def test_k4_backward_from_lse_matches_pallas_interpret(nb, n, hd, h, nw):
+    """The card's backward arithmetic, P rebuilt from the forward's saved
+    log-sum-exp (``window_attention_lse_plain`` then
+    ``window_attention_bwd_lse_plain``), and the autograd of
+    ``window_attention`` on CPU tensors, against ``jax.grad`` of the JAX
+    ``window_attention`` (its Pallas backward in interpret mode), at the
+    main path's n = 16, hd = 32 and with a shifted bias (nw > 1); then the
+    lse route against the softmax route in float64 at a logit scale of 10."""
+    rng = np.random.default_rng(nb + nw)
+    # q and k as the contract passes them: cosine-normalised, q times the
+    # logit scale; the bias 16 sigmoid(CPB), plus the -100 shift mask
+    unit = lambda x: x / np.linalg.norm(x, axis=-1, keepdims=True)
+    qn = unit(rng.normal(size=(nb, h, n, hd)))
+    k = unit(rng.normal(size=(nb, h, n, hd)))
+    v = rng.normal(size=(nb, h, n, hd))
+    bias = 16.0 / (1.0 + np.exp(-rng.normal(size=(nw, h, n, n))))
+    if nw > 1:
+        bias = bias - 100.0 * (rng.random(size=(nw, 1, n, n)) < 0.3)
+    w = rng.normal(size=(nb, h, n, hd))
+    # float32 at a logit scale of 1: the tolerance of the test above holds
+    # the float32 roundoff of both sides (at a scale of 10 it alone reads
+    # ~1e-5 on dk, against float64, in the JAX kernel and the port alike)
+    f32 = [a.astype(np.float32) for a in (qn, k, v, bias, w)]
+    ref = jax.grad(lambda *a: jnp.sum(jax_window_attention(*a) * f32[4]), argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, f32[:4]))
+    tq, tk, tv, tb = (torch.from_numpy(a).requires_grad_() for a in f32[:4])
+    tw = torch.from_numpy(f32[4])
+    with torch.no_grad():
+        out, lse = twa.window_attention_lse_plain(tq, tk, tv, tb)
+        lse_grads = twa.window_attention_bwd_lse_plain(tq, tk, tv, tb, out, lse, tw)
+    np.testing.assert_allclose(out.numpy(), twa.window_attention_plain(tq, tk, tv, tb).detach(),
+                               rtol=K4_TOL, atol=K4_TOL)
+    twa.reset_launches()
+    auto = torch.autograd.grad((twa.window_attention(tq, tk, tv, tb) * tw).sum(),
+                               (tq, tk, tv, tb))
+    assert twa.launches == twa.bwd_launches == 0
+    assert twa.bwd_route(n) == "small" and lse_grads[3].shape == (nw, h, n, n)
+    for name, r, a, b in zip(("dq", "dk", "dv", "dbias"), ref, lse_grads, auto):
+        for got in (a, b):
+            np.testing.assert_allclose(got.detach().numpy(), np.asarray(r), rtol=K4_TOL,
+                                       atol=K4_TOL, err_msg=name)
+    # float64, a logit scale of 10: the same gradients by either route
+    t64 = [torch.from_numpy(a) for a in (10.0 * qn, k, v, bias, w)]
+    out, lse = twa.window_attention_lse_plain(*t64[:4])
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"),
+                          twa.window_attention_bwd_lse_plain(*t64[:4], out, lse, t64[4]),
+                          twa.window_attention_bwd_plain(*t64)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10, atol=1e-12, err_msg=name)
+
+
 def _k3_operands(nw, c=32, heads=4, b=2, hw=8, ws=4, seed=5):
     """The operands of tests/test_swin_block.py:104-120 and a cotangent."""
     rng = np.random.default_rng(seed)

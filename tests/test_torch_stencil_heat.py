@@ -107,6 +107,48 @@ def test_heat_solver_matches_jax_in_f64(reaction):
 
 
 @pytest.mark.parametrize("reaction", [0.0, 1.0])
+def test_plain_heat_trajectory_matches_jax_in_f64(reaction):
+    """K5b's trajectory, plain (``heat_trajectory`` on a CPU tensor), against
+    the JAX solver's batched trajectory in float64: frame 0 is u0, then one
+    frame a snapshot."""
+    n = 32
+    kw = dict(resolution=n, diffusivity=1e-2, reaction=reaction, t_end=0.003, n_snapshots=3)
+    jsol = JaxHeatSolver(JaxHeatConfig(**kw))
+    S, inner = HeatSolver(HeatConfig(**kw)).steps()
+    u0 = _grf(n, 2, seed=13)
+    ref = np.asarray(jsol.make_batched_trajectory_fn()(jnp.asarray(u0)))
+    got = to_numpy(stencil.heat_trajectory(torch.from_numpy(u0), S, inner, 1.0 / n, 1e-2, 1e-4,
+                                           reaction))
+    assert got.shape == ref.shape == (2, S + 1, n, n) and inner == 10
+    np.testing.assert_array_equal(got[:, 0], u0)
+    np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-12 * np.abs(u0).max())
+
+
+def test_cpu_heat_trajectory_is_the_plain_version():
+    """For a CPU tensor ``heat_trajectory`` is ``heat_trajectory_plain`` bit
+    for bit, fills ``out``, leaves u0 unwritten and launches nothing."""
+    n = 20
+    u0 = torch.from_numpy(_grf(n, 3, seed=4, dtype=np.float32))
+    u_copy = u0.clone()
+    stencil.reset_launches()
+    ref = stencil.heat_trajectory_plain(u0, 3, 4, 1 / n, 1e-2, 1e-4, 1.0)
+    got = stencil.heat_trajectory(u0, 3, 4, 1 / n, 1e-2, 1e-4, 1.0)
+    out = torch.zeros((3, 4, n, n))
+    assert stencil.heat_trajectory(u0, 3, 4, 1 / n, 1e-2, 1e-4, 1.0, out=out) is out
+    for x in (got, out):
+        torch.testing.assert_close(x, ref, rtol=0, atol=0)
+    manual = u0
+    for _ in range(8):
+        manual = stencil.heat_step(manual, 1 / n, 1e-2, 1e-4, 1.0)
+    torch.testing.assert_close(ref[:, 2], manual, rtol=0, atol=0)
+    torch.testing.assert_close(ref[:, 0], u0, rtol=0, atol=0)
+    torch.testing.assert_close(u0, u_copy, rtol=0, atol=0)
+    assert stencil.launches == 0
+    with pytest.raises(ValueError, match="inner"):
+        stencil.heat_trajectory(u0, 3, 0, 1 / n, 1e-2, 1e-4)
+
+
+@pytest.mark.parametrize("reaction", [0.0, 1.0])
 def test_kernel_routes_agree_with_plain_on_cpu(reaction):
     """The K5a ("laplacian") and K5b ("fused") routes run their plain
     versions on the CPU: the same trajectory to float64 roundoff."""
