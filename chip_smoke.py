@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the repository root; needs one card
+    python3 chip_smoke.py [--parent DIR]   # from the repository root; one card
 
 Phases (any failure exits nonzero; no phase catches a failure):
 
@@ -75,11 +75,25 @@ Phases (any failure exits nonzero; no phase catches a failure):
 
 12. K3 (the Swin-V2 block) and K4 (window attention) are built in phase 2
     beside K1 and K2; their build seconds are printed here;
-13. K4 against its plain version (relative L2 ≤ 1.5e-5) at scOT-B's
-    stage-0 shapes at batch 16 (nb 64, 3 heads, n 256, hd 32; nw 4 with the
-    real shift mask, and nw 1) and stage-3 shapes (nb 16, 24 heads, n 16),
-    and at the evaluate main path's stage 3 (batch 3); K4, the plain
-    version and ``scaled_dot_product_attention`` (scale 1, float mask) timed;
+13. K4's forward in the model's layout (q, k, v the permuted views of
+    their projections, q and k cosine-normalised at a logit scale of 10,
+    the bias 16σ(CPB) with the heads fastest, plus the shift mask) against
+    its plain version at scOT-B's stage 0 at batch 16 (nb 64, 3 heads, n
+    256, hd 32; nw 4 and 1), stage 2 on the attention-only route (nb 16,
+    12 heads, n 64), scOT-L's stage 2 (nb 16, 12 heads, n 64, hd 64), stage
+    3 at batch 16 and the evaluate main path's stage 3 (batch 3): out and
+    the log-sum-exp each under its own bar (``K4_FWD_VS_PLAIN_BARS``), the
+    plain float32 version's own error against float64 (its floor) printed
+    beside each; one launch a call, a rerun equal to the bit, only out
+    allocated under ``torch.inference_mode()`` (one allocation kept, of
+    out's bytes rounded up to the allocator's 512-byte block), and the model's merge of
+    the heads a view of out; K4 by events (with the wrapper), its device
+    time and the wrapper's host µs a call, the plain version and
+    ``scaled_dot_product_attention`` (scale 1, float mask) timed against
+    the float32 and 3xTF32 bounds; with ``--parent DIR`` also that
+    checkout's K4 (its wrapper and copies) on the same inputs, in turns,
+    its source built into this checkout's ``_build/`` (nothing is written
+    under DIR);
 14. K3 against its plain version (relative L2 ≤ 2e-5) at stages 0 (nw 4
     and 1), 1 and 2 at batch 16, (16, 32², 96), (16, 16², 192), (16, 8²,
     384), and stages 0–2 at the main path's batch 3, with the weights in
@@ -92,7 +106,11 @@ Phases (any failure exits nonzero; no phase catches a failure):
     stage 3), attention-only (K4 at all 64) and plain; each kernel route
     against plain (relative L2 ≤ 2.5e-5), the launches of one forward exactly
     (auto 240 K3 kernels = 48 × 5 and 16 K4; attention-only 64 K4), each
-    route timed;
+    route timed (events and device time); then every K4 call of one
+    forward of each kernel route again, three times, on the operands the
+    model passed, under the profiler: its kernels are K4's and nothing else
+    (no copy; a profiler session that records no device event is taken
+    again, at most three);
 16. the scOT main path: ``evaluate --model scot-B`` in a subprocess on
     phase 10's ``fpo_multi_hole`` shard with that seeded weight set as a
     ``.pt`` (written to a temp dir, deleted after): finite errors for the 3
@@ -143,7 +161,12 @@ Phases (any failure exits nonzero; no phase catches a failure):
     against the plain trajectory; the heat trajectory at B=32, 128² through
     ``HeatSolver(impl="fused")`` (20 × 500 steps, one resident launch) and
     ``impl="laplacian"`` (20 × 50, two launches a step) against
-    ``impl="plain"``, per snapshot ≤ 3.5e-6; K5a, one tiled K5b step,
+    ``impl="plain"``, per snapshot ≤ 3.5e-6; K5a's floor (its plain version
+    against float64) beside its bar, and a K5a mutant (the wrap of the top
+    row read from row n − 2, built in phase 2) failing the bar; K5a at B =
+    1, 8, 32 at 128² and B = 32 at 256² and 512² by CUDA graph replay
+    against its bytes bound, and at (1, 4²), next to no work, for what a
+    graph node costs; K5a, one tiled K5b step,
     their plain versions and a circular ``nn.Conv2d`` with the 5-point
     weights (K5a's yardstick, TF32 off) timed by CUDA graph replay (device
     time, without the host's enqueue); the main path's trajectory call by
@@ -174,15 +197,21 @@ cluster kernel's 3xTF32 products read 4.0e-6 there; NVIDIA H100). Two
 mutants of the cluster kernel failed phase 8 by ≥ 10⁴× the bar: the
 cavity's zero mode left alone, and a halo row off by one.
 
-K3's, K4's and the whole model's bars are about 30× what each differs from
-its plain version by when both are right (7.0e-7, 4.8e-7 and 8.4e-7 worst,
-NVIDIA H100); the evaluate bar leaves ~100× over 9.3e-7 for the 7-step
+K3's and the whole model's bars are about 30× what each differs from its
+plain version by when both are right (7.0e-7 and 8.4e-7 worst, NVIDIA
+H100); the evaluate bar leaves ~100× over 9.3e-7 for the 7-step
 rollouts. The backward bars are about 30× the worst differences of the
 first run of phases 17–19 (one train step's gradients 3.6e-5 at a logit
 scale, median 2.3e-7; NVIDIA H100); the loss agreed to the bit, and its bar
-is 30× the forward's 3e-7. K4's backward, like K3's, has a bar a
-cotangent, 2.5× the plain float32 version's own error against float64 at
-phase 17's inputs (the worst of its two cases; NVIDIA H100). K3's backward
+is 30× the forward's 3e-7. K4's forward has a bar an output (out and the
+log-sum-exp), 2.5× the plain float32 version's own error against float64
+at phase 13's inputs (the worst of its cases; NVIDIA H100), in place of one
+bar at 1.5e-5, 30× its first run's difference: ``k4_bars.py`` shows two
+mutants failing them (the bias read from the next window slot; the lo×hi
+term dropped from every 3xTF32 k step, P·V's included). K4's backward, like
+K3's, has a bar a cotangent, 2.5× the plain float32 version's own error
+against float64 at phase 17's inputs (the worst of its two cases; NVIDIA
+H100). K3's backward
 has a bar a cotangent, 2.5× the plain float32 version's own error against
 float64 at phase 18's inputs (worst of its three batch-16 stages): one bar
 for all 19 at 30× the noisiest let a GELU-constant mutant through, which
@@ -191,7 +220,9 @@ moves the cotangents by at most 3.3× their floors; 2.5× fails it on five
 sample by 10⁵×, while the earlier float32 kernel read ≤ 1.9× and the
 3xTF32 kernel ≤ 2.0× (NVIDIA H100). K5a
 agreed with its plain version to the bit (the same float32 operations, none
-contractible), so its bar is a float32 ulp; K5b's and the heat routes' bars
+contractible), so its bar is a float32 ulp, below its plain version's own
+error against float64 (3.6e-6 at 128²), and a wrap read from the wrong row
+reads far above it; K5b's and the heat routes' bars
 are about 30× their first run's worst (2.2e-6 increment; 1.1e-7 fused, 7.0e-8
 laplacian route), the mean drift's 30× 9.3e-6 and Darcy's 30× 5.8e-7 (NVIDIA
 H100). Each kernel's ``bound_ms`` is the larger of its bytes (inputs read
@@ -222,10 +253,23 @@ K1_ABS_BAR = 2.6e-4
 K1_VS_PLAIN_BAR = 1e-5
 K2_VS_PLAIN_BAR = 7e-5
 GHIA_BARS = {100: (0.05, 0.03), 400: (0.07, 0.06)}
-K4_VS_PLAIN_BAR = 1.5e-5
 K3_VS_PLAIN_BAR = 2e-5
 SCOT_VS_PLAIN_BAR = 2.5e-5
 EVAL_VS_PLAIN_RTOL = 1e-4
+# K4's forward, one bar an output: 2.5x the plain float32 version's own
+# relative L2 against float64, the worst of phase 13's cases (the floor
+# beside each; NVIDIA H100); the single bar before was 1.5e-5
+K4_FWD_VS_PLAIN_BARS = {
+    "out": 1.27e-6,  # floor 5.10e-07
+    "lse": 9.0e-8,   # floor 3.63e-08
+}
+# phase 13's cases, K4 in the model's layout: (label, nb, h, n, hd, nw)
+K4_FWD_CASES = (("stage 0 shifted, B=16", 64, 3, 256, 32, 4),
+                ("stage 0, B=16", 64, 3, 256, 32, 1),
+                ("stage 2 attention-only, B=16", 16, 12, 64, 32, 1),
+                ("scOT-L stage 2, B=16", 16, 12, 64, 64, 1),
+                ("stage 3, B=16", 16, 24, 16, 32, 1),
+                ("stage 3, B=3 (main path)", 3, 24, 16, 32, 1))
 # K4's backward, one bar a cotangent: 2.5x the plain float32 version's own
 # relative L2 against float64, the worst of phase 17's two cases (the floor
 # beside each; NVIDIA H100)
@@ -262,6 +306,10 @@ K3_BWD_VS_PLAIN_BARS = {
 STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_BAR = 1.1e-3
 K5A_VS_PLAIN_BAR = 1e-7
+# a mutant of K5a's row route that phase 23 must catch: the top row's upper
+# neighbour (the wrap) read from row n - 2 instead of n - 1
+K5A_WRONG_WRAP = ("      y = y < 0 ? y + n : y >= n ? y - n : y;",
+                  "      y = y < 0 ? y + n - 1 : y >= n ? y - n : y;")
 K5B_VS_PLAIN_BAR = 7e-5
 HEAT_ROUTE_VS_PLAIN_BAR = 3.5e-6
 HEAT_MEAN_DRIFT_BAR = 3e-4
@@ -296,6 +344,44 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k4_model_inputs(gen, nb: int, h: int, n: int, hd: int, nw: int):
+    """K4's q, k, v and bias drawn from ``gen`` and laid out as the model
+    passes them (``models/scot.py``): q, k, v the (nb, h, n, hd) views of
+    (nb, n, h·hd) projections, q and k cosine-normalised, q at a logit scale
+    of 10; the bias 16σ of a (n, n, h) table permuted to (h, n, n), as the
+    CPB gather gives it (heads fastest), plus scOT-B stage 0's shift mask
+    at nw = 4 (n = 256)."""
+    import torch
+
+    from pregen_pde_tpu_torch.models.scot import shift_attn_mask
+
+    dev = gen.device
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    heads = lambda t: t.reshape(nb, n, h, hd).permute(0, 2, 1, 3)
+    q, k, v = (heads(rn(nb, n, h * hd)) for _ in range(3))
+    q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-6) * 10.0
+    k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-6)
+    bias = (16.0 * torch.sigmoid(rn(n, n, h).permute(2, 0, 1)))[None]
+    if nw > 1:
+        bias = bias + torch.from_numpy(shift_attn_mask(32, 32, 16, 8)).to(dev)[:, None]
+    return q, k, v, bias
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """The host's µs a call of ``fn`` (its enqueue: no synchronisation
+    inside the timed calls)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
 def k3_linear(sb, args):
     """The K3 operands of the JAX package's packed layouts in the layouts
     the model passes (``nn.Linear`` weights, flat biases)."""
@@ -324,6 +410,26 @@ def device_ms(fn, reps: int = 10) -> float:
     return sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3 / reps
 
 
+def device_kernel_names(fn, tries: int = 3) -> tuple[list, int]:
+    """(the names of the device kernels ``fn`` runs, by ``torch.profiler``;
+    the sessions it took). A session that records no device event at all
+    is the profiler's miss, not ``fn``'s (one in this script's runs on an
+    NVIDIA H100 did, on calls that launch kernels), and is profiled again,
+    up to ``tries`` sessions."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names, attempt
+
+
 def timed(fn, reps: int = 1):
     import torch
 
@@ -335,8 +441,33 @@ def timed(fn, reps: int = 1):
     return out, (time.perf_counter() - t0) / reps
 
 
-def main() -> None:
+def parent_k4(tree: str, so: str):
+    """The K4 wrapper module of the checkout ``tree`` (e.g. a ``git archive``
+    of the parent commit) bound to ``so``, its kernel source's build, to
+    time beside this tree's in one process."""
+    import ctypes
+    import importlib.util
+    import types
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_window_attention",
+        os.path.join(tree, "pregen_pde_tpu_torch", "ops", "window_attention.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib = ctypes.CDLL(str(so))
+    mod._build = types.SimpleNamespace(load=lambda name: lib)
+    return mod
+
+
+def main(argv=None) -> None:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--parent", help="another checkout (e.g. a git archive of the parent "
+                                     "commit) whose K4 forward phase 13 times beside this one")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to test",
@@ -380,6 +511,12 @@ def main() -> None:
     names = (snc.LIB_NAME, npc.LIB_NAME, sb.LIB_NAME, wa.LIB_NAME, stencil.LIB_NAME)
     pool = ThreadPoolExecutor(max_workers=len(names))
     builds = {name: pool.submit(build.build, name) for name in names}
+    # K5a's wrong-wrap mutant (phase 23) and, with --parent, that tree's K4
+    builds["k5a_wrong_wrap"] = pool.submit(build.build_variant, stencil.LIB_NAME,
+                                           (K5A_WRONG_WRAP,), "k5a_wrong_wrap")
+    if args.parent:
+        builds["parent_k4"] = pool.submit(build.build_variant, wa.LIB_NAME, (), "parent_k4",
+                                          os.path.abspath(args.parent))
     builds[snc.LIB_NAME].result()
     build.load(snc.LIB_NAME)
     say(f"[2] built {snc.LIB_NAME} (sm_90a) in {time.perf_counter() - t0:.2f} s "
@@ -647,9 +784,10 @@ def main() -> None:
         "us_per_traj_step_resident_chain": {str(B): list(v) for B, v in per_step.items()},
     }
     k2_line, fpo = k2_phases(dev, card, builds[npc.LIB_NAME], t0_build)
-    k3_line, k4_line = scot_phases(dev, card, builds, t0_build, fpo)
+    k3_line, k4_line = scot_phases(dev, card, builds, t0_build, fpo, args.parent)
     k3_bwd_line, k4_bwd_line = train_phases(dev, card, fpo)
-    k5a_line, k5b_line = heat_phases(dev, card, builds[stencil.LIB_NAME], t0_build)
+    k5a_line, k5b_line = heat_phases(dev, card, builds[stencil.LIB_NAME], t0_build,
+                                     builds["k5a_wrong_wrap"])
     pool.shutdown()
     simple_phases(card)
     say(json.dumps({"kernels": [k1_line, k2_line, k3_line, k4_line, k3_bwd_line, k4_bwd_line,
@@ -900,7 +1038,8 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
     }, fpo
 
 
-def scot_phases(dev, card: str, builds: dict, t0_build: float, fpo) -> tuple[dict, dict]:
+def scot_phases(dev, card: str, builds: dict, t0_build: float, fpo,
+                parent_tree: str | None = None) -> tuple[dict, dict]:
     """Phases 12-16: K3, K4 and the scOT evaluate main path. → K3's and
     K4's entries of the kernels line (at the main path's shapes)."""
     import numpy as np
@@ -930,40 +1069,88 @@ def scot_phases(dev, card: str, builds: dict, t0_build: float, fpo) -> tuple[dic
         b = 16.0 * torch.sigmoid(rn(1, h, n, n))
         return b + mask0[:, None] if nw > 1 else b
 
-    # -- 13. K4 against its plain version; SDPA as the library yardstick ------------------------
+    # -- 13. K4's forward in the model's layout against its plain version --------------------
+    # each case: per-output bars over the floors, one launch a call and nothing
+    # else allocated; events (with the wrapper), device time, the wrapper's
+    # host µs, plain, SDPA (the library yardstick) and the parent's kernel
+    # (--parent: its wrapper copies the operands first) in turns
+    parent = parent_k4(parent_tree, builds["parent_k4"].result()) if parent_tree else None
     k4_line = None
-    for label, nb, h, n, hd, nw in (("stage 0 shifted, B=16", 64, 3, 256, 32, 4),
-                                    ("stage 0, B=16", 64, 3, 256, 32, 1),
-                                    ("stage 3, B=16", 16, 24, 16, 32, 1),
-                                    ("stage 3, B=3 (main path)", 3, 24, 16, 32, 1)):
-        q = F.normalize(rn(nb, h, n, hd), dim=-1) * 10.0  # the logit scale folded in
-        k = F.normalize(rn(nb, h, n, hd), dim=-1)
-        v = rn(nb, h, n, hd)
-        bias = bias_of(h, n, nw)
+    g13 = torch.Generator(device=dev).manual_seed(3)
+    for label, nb, h, n, hd, nw in K4_FWD_CASES:
+        q, k, v, bias = k4_model_inputs(g13, nb, h, n, hd, nw)
+        call = lambda: wa.window_attention(q, k, v, bias)
         with torch.inference_mode():
-            got = wa.window_attention(q, k, v, bias)
-            ref = wa.window_attention_plain(q, k, v, bias)
-            err = rel_l2(got, ref)
-            if not (torch.isfinite(got).all() and err <= K4_VS_PLAIN_BAR):
-                fail(f"K4 vs plain ({label}): rel L2 {err:.3e} > {K4_VS_PLAIN_BAR:.1e}")
+            wa.reset_launches()
+            out, lse = wa._forward_kernel(q, k, v, bias, save=True)
+            torch.cuda.synchronize()
+            live = lambda: torch.cuda.memory_stats()["allocation.all.current"]
+            before, n_before = torch.cuda.memory_allocated(), live()
+            got = call()
+            torch.cuda.synchronize()
+            kept, n_kept = torch.cuda.memory_allocated() - before, live() - n_before
+            launched = wa.launches
+            ref, lref = wa.window_attention_lse_plain(q, k, v, bias)
+            r64, l64 = wa.window_attention_lse_plain(*(t.double() for t in (q, k, v, bias)))
+            errs = {"out": rel_l2(out, ref), "lse": rel_l2(lse, lref)}
+            floors = {"out": rel_l2(ref, r64), "lse": rel_l2(lref, l64)}
+            over = {m: e for m, e in errs.items() if not e <= K4_FWD_VS_PLAIN_BARS[m]}
+            if not (torch.isfinite(out).all() and torch.isfinite(lse).all()) or over:
+                fail(f"K4 vs plain ({label}): over their bars {json.dumps(over)} (all "
+                     f"{json.dumps(errs)}; bars {json.dumps(K4_FWD_VS_PLAIN_BARS)})")
+            # the model's permute(0, 2, 1, 3).reshape(nb, n, c) of out is a view
+            merged = got.permute(0, 2, 1, 3).reshape(nb, n, h * hd)
+            # one allocation kept, out's: the caching allocator rounds a block up
+            # to 512 bytes, and a large block (> 1 MB) reused from its cache
+            # keeps a tail under 1 MB unsplit
+            block = (got.numel() * 4 + 511) // 512 * 512
+            if not (launched == 2 and torch.equal(got, out) and merged.data_ptr() == got.data_ptr()
+                    and n_kept == 1 and block <= kept < block + 2 ** 20):
+                fail(f"K4 ({label}): {launched} launches for two calls, a rerun equal "
+                     f"{torch.equal(got, out)}, out merged in place "
+                     f"{merged.data_ptr() == got.data_ptr()}, {n_kept} allocations and "
+                     f"{kept} bytes kept for a {block}-byte out")
             qv, kv, vv = (t.view(nb // nw, nw, h, n, hd) for t in (q, k, v))
-            lib = F.scaled_dot_product_attention(qv, kv, vv, attn_mask=bias, scale=1.0)
-            lib_err = rel_l2(lib.reshape(nb, h, n, hd), ref)
-            reps = 50 if n == 256 else 200
-            t_k = event_ms(lambda: wa.window_attention(q, k, v, bias), reps)
-            t_p = event_ms(lambda: wa.window_attention_plain(q, k, v, bias), reps)
-            t_l = event_ms(lambda: F.scaled_dot_product_attention(qv, kv, vv, attn_mask=bias,
-                                                                  scale=1.0), reps)
-        b_ms, b_by = bound(4 * (4 * q.numel() + bias.numel()), 4.0 * nb * h * n * n * hd)
-        say(f"[13] K4 {label} (nb {nb}, h {h}, n {n}, hd {hd}, nw {nw}): rel L2 vs plain "
-            f"{err:.3e} (bar {K4_VS_PLAIN_BAR:.1e}), SDPA vs plain {lib_err:.3e}; K4 {t_k:.4f} ms "
-            f"| plain {t_p:.4f} ms | SDPA {t_l:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | {card}")
+            sdpa = lambda: F.scaled_dot_product_attention(qv, kv, vv, attn_mask=bias, scale=1.0)
+            lib_err = rel_l2(sdpa().reshape(nb, h, n, hd), ref)
+            reps = 50 if n >= 256 else 200
+            t = {}
+            for side in ("change", "parent", "parent", "change") if parent else ("change",):
+                fn = call if side == "change" else lambda: parent.window_attention(q, k, v, bias)
+                t.setdefault(side, []).append((event_ms(fn, reps), device_ms(fn, 20)))
+            t_k, d_k = (min(x) for x in zip(*t["change"]))
+            h_us = host_us(call)
+            t_p = event_ms(lambda: wa.window_attention_plain(q, k, v, bias), 20)
+            t_l = event_ms(sdpa, 20)
+            if parent:
+                p_err = rel_l2(parent.window_attention(q, k, v, bias), ref)
+                t_par, d_par = (min(x) for x in zip(*t["parent"]))
+                h_par = host_us(lambda: parent.window_attention(q, k, v, bias))
+        flops = 4.0 * nb * h * n * n * hd
+        b_ms, b_by = bound(4 * (4 * q.numel() + bias.numel()), flops)
+        b3_ms = max(4 * (4 * q.numel() + bias.numel()) / HBM_BYTES_PER_S,
+                    3 * flops / TF32_FLOPS) * 1e3
+        say(f"[13] K4 {label} (nb {nb}, h {h}, n {n}, hd {hd}, nw {nw}; the model's layout, "
+            f"{'small' if n <= wa.SMALL_MAX_N else 'wide'} route): rel L2 vs plain "
+            + ", ".join(f"{m} {errs[m]:.3e} (bar {K4_FWD_VS_PLAIN_BARS[m]:.3g}, floor "
+                        f"{floors[m]:.2e})" for m in errs)
+            + f", SDPA vs plain {lib_err:.3e}; 1 launch a call, only out allocated, merged "
+            f"in place; K4 {t_k:.4f} ms (device {d_k:.4f} ms, the wrapper's host "
+            f"{h_us:.1f} us) | plain {t_p:.4f} ms | SDPA {t_l:.4f} ms | bound {b_ms:.4f} ms "
+            f"({b_by}), 3xTF32 {b3_ms:.4f} ms | {card}")
+        if parent:
+            say(f"[13]   parent K4 ({parent_tree}) on the same inputs, in turns: "
+                f"{t_par:.4f} ms (device {d_par:.4f} ms, its copies included; its wrapper's host "
+                f"{h_par:.1f} us; rel L2 vs plain {p_err:.3e}); this tree {t_k:.4f} ms (device "
+                f"{d_k:.4f} ms) | {card}")
         if label.endswith("(main path)"):
             k4_line = {"name": wa.LIB_NAME, "route": "cuda",
                        "source": "pregen_pde_tpu_torch/csrc/window_attention.cu",
                        "replaces": "pregen_pde_tpu/ops/window_attention.py:136",
-                       "max_abs_err": float((got - ref).abs().max()), "ms": t_k,
-                       "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l}
+                       "max_abs_err": float((out - ref).abs().max()), "ms": t_k,
+                       "device_ms": d_k, "host_us": h_us, "plain_ms": t_p, "bound_ms": b_ms,
+                       "bound_by": b_by, "bound_3xtf32_ms": b3_ms, "library_ms": t_l}
+        del q, k, v, bias, out, lse, got, ref, r64
 
     # -- 14. K3 against its plain version ----------------------------------------------------------
     k3_line = None
@@ -1042,21 +1229,53 @@ def scot_phases(dev, card: str, builds: dict, t0_build: float, fpo) -> tuple[dic
         # (K3 kernels, K4 launches) of one forward in each route
         wants = {"auto": (48 * sb.KERNELS_PER_CALL, 16), "attention-only": (0, 64),
                  "plain": (0, 0)}
-        outs, times = {}, {}
+        outs, times, dev_times = {}, {}, {}
+        import pregen_pde_tpu_torch.models.scot as scot_mod
+
+        calls = {}  # each K4 route's attention calls of one forward, as the model made them
+
+        def recording(q, k, v, bias):
+            calls[route].append((q, k, v, bias))
+            return wa.window_attention(q, k, v, bias)
+
         for route in ROUTES:
             set_route(model, route)
             want = wants[route]
             with torch.inference_mode():
                 sb.reset_launches()
                 wa.reset_launches()
-                outs[route] = model(x, t)
+                calls[route] = []
+                scot_mod.window_attention = recording
+                try:
+                    outs[route] = model(x, t)
+                finally:
+                    scot_mod.window_attention = wa.window_attention
                 torch.cuda.synchronize()
                 got = (sb.launches, wa.launches)
                 if got != want:
                     fail(f"scOT-B {route}: one forward launched (K3, K4) = {got}, want {want}")
                 times[route] = event_ms(lambda: model(x, t), 5)
+                dev_times[route] = device_ms(lambda: model(x, t), 3)
             if not torch.isfinite(outs[route]).all():
                 fail(f"scOT-B {route}: non-finite output")
+        # inside a K4 attention call no kernel runs but K4's: each recorded
+        # call again, on the model's own operands, three times
+        for route in ("auto", "attention-only"):
+            def again():
+                with torch.inference_mode():
+                    for _ in range(3):
+                        for args_ in calls[route]:
+                            wa.window_attention(*args_)
+
+            names, tries = device_kernel_names(again)
+            if len(names) != 3 * len(calls[route]) or not all("attn_fwd" in nm for nm in names):
+                fail(f"scOT-B {route}: 3 x its {len(calls[route])} K4 calls ran {len(names)} "
+                     f"kernels: {sorted(set(names))}")
+            kinds = sorted({nm.split("<")[0].split("::")[-1] for nm in names})
+            say(f"[15] scOT-B {route}: 3 x its {len(calls[route])} K4 attention calls ran "
+                f"{len(names)} kernels, all K4's ({', '.join(kinds)}): no copy (profiled "
+                f"{tries} time{'s' if tries > 1 else ''})")
+        del calls
         for route in ("auto", "attention-only"):
             err = rel_l2(outs[route], outs["plain"])
             say(f"[15] scOT-B ({n_params / 1e6:.1f} M params) 128², B=16, {route}: rel L2 vs "
@@ -1065,7 +1284,8 @@ def scot_phases(dev, card: str, builds: dict, t0_build: float, fpo) -> tuple[dic
             if not err <= SCOT_VS_PLAIN_BAR:
                 fail(f"scOT-B {route} vs plain: rel L2 {err:.3e} > {SCOT_VS_PLAIN_BAR:.1e}")
         say("[15] scOT-B 128², B=16, one forward: " + " | ".join(
-            f"{r} {ms:.3f} ms" for r, ms in times.items()) + f" | {card}")
+            f"{r} {ms:.3f} ms (device {dev_times[r]:.3f} ms)" for r, ms in times.items())
+            + f" | {card}")
         del model, outs
 
         # -- 16. the main path: evaluate through the CLI ------------------------------------------
@@ -1443,10 +1663,13 @@ def graph_ms(fn, reps: int = 200) -> float:
     return a.elapsed_time(b) / (3 * reps)
 
 
-def heat_phases(dev, card: str, stencil_build, t0_build: float) -> tuple[dict, dict]:
+def heat_phases(dev, card: str, stencil_build, t0_build: float,
+                mutant_build) -> tuple[dict, dict]:
     """Phases 22-24: K5a and K5b against their plain versions, the heat
     routes, and the heat main path. → K5a's and K5b's entries of the
     kernels line."""
+    import ctypes
+
     import numpy as np
     import torch
 
@@ -1473,13 +1696,29 @@ def heat_phases(dev, card: str, stencil_build, t0_build: float) -> tuple[dict, d
         dx = 1.0 / n
         got, ref = st.laplacian_cuda(u, dx), st.laplacian(u, dx)
         err = rel_l2(got, ref)
+        floor = rel_l2(ref, st.laplacian(u.double(), dx))
         max_abs = float((got - ref).abs().max())
         if not (torch.isfinite(got).all() and err <= K5A_VS_PLAIN_BAR):
             fail(f"K5a vs plain (B={B}, {n}^2): rel L2 {err:.3e} > {K5A_VS_PLAIN_BAR:.1e}")
         if k5a_err is None:
             k5a_err = max_abs
-        say(f"[23] K5a B={B} {n}^2: rel L2 vs plain {err:.3e} (bar {K5A_VS_PLAIN_BAR:.1e}), "
-            f"max abs {max_abs:.3e} of max |lap| {float(ref.abs().max()):.3e}")
+        say(f"[23] K5a B={B} {n}^2 ({'row' if n % 128 == 0 else 'general'} route): rel L2 vs "
+            f"plain {err:.3e} (bar {K5A_VS_PLAIN_BAR:.1e}; the plain float32 version's own "
+            f"against float64 {floor:.2e}), max abs {max_abs:.3e} of max |lap| "
+            f"{float(ref.abs().max()):.3e}")
+        if (B, n) == (32, 128):
+            # the bar catches a wrap read from the wrong row (built in phase 2)
+            main_lib = build._loaded[st.LIB_NAME]
+            build._loaded[st.LIB_NAME] = ctypes.CDLL(str(mutant_build.result()))
+            try:
+                m_err = rel_l2(st.laplacian_cuda(u, dx), ref)
+            finally:
+                build._loaded[st.LIB_NAME] = main_lib
+            if not m_err > K5A_VS_PLAIN_BAR:
+                fail(f"K5a's wrong-wrap mutant passed its bar: rel L2 {m_err:.3e}")
+            say(f"[23] K5a mutant (the top row's upper neighbour read from row n - 2) B={B} "
+                f"{n}^2: rel L2 vs plain {m_err:.3e}, {m_err / K5A_VS_PLAIN_BAR:.1e}x the bar: "
+                f"caught")
         for react in (0.0, 1.0):
             got, ref = st.heat_step_cuda(u, dx, D, dt, react), st.heat_step(u, dx, D, dt, react)
             err = rel_l2(got - u, ref - u)  # the step's increment, not the field it moves
@@ -1600,11 +1839,21 @@ def heat_phases(dev, card: str, stencil_build, t0_build: float) -> tuple[dict, d
         say(f"[23] K5b us a step at B={B} 128^2: "
             + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
             + f" (default clusters of {st.resident_cluster(128)}) | {card}")
+    # K5a across batch and grid (row route), device time against the bytes
+    # bound; a 4^2 image, next to no work, shows what a graph node costs
+    sweep = {}
+    for B, n in ((1, 4), (1, 128), (8, 128), (32, 128), (32, 256), (32, 512)):
+        ub = grf_2d(gen, SpectralGrid2D(n), B)
+        ms = graph_ms(lambda: st.laplacian_cuda(ub, 1.0 / n))
+        bnd = bound(2 * 4 * ub.numel(), 6.0 * ub.numel())[0]
+        sweep[f"{B}x{n}"] = {"ms": ms, "bound_ms": bnd}
+        say(f"[23] K5a B={B} {n}^2: {ms:.5f} ms by graph replay | bound {bnd:.5f} ms (bytes; "
+            f"{bnd / ms:.1%} reached) | {card}")
     k5a_line = {"name": f"{st.LIB_NAME}_laplacian", "route": "cuda",
                 "source": "pregen_pde_tpu_torch/csrc/stencil.cu",
                 "replaces": "pregen_pde_tpu/ops/stencil.py:42", "launches": k5a_launches,
                 "max_abs_err": k5a_err, "ms": t["k5a"], "plain_ms": t["k5a_plain"],
-                "bound_ms": a_ms, "bound_by": a_by, "library_ms": t["conv"]}
+                "bound_ms": a_ms, "bound_by": a_by, "library_ms": t["conv"], "sweep": sweep}
     k5b_line = {"name": f"{st.LIB_NAME}_heat_trajectory", "route": "cuda",
                 "source": "pregen_pde_tpu_torch/csrc/stencil.cu",
                 "replaces": "pregen_pde_tpu/ops/stencil.py:83",

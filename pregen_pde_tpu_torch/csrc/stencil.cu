@@ -15,9 +15,26 @@
 // kernels and their plain versions differ only where nvcc contracts a
 // multiply and an add into one FMA.
 //
-// K5a: one thread per output point over (B, n, n); the neighbours are read
-// through the read-only cache, which serves the reuse between neighbouring
-// threads. A single pass over memory (6 FLOP a point).
+// K5a, two kernels, one launch a call either way. What bounds it is the
+// bytes: u read once and the result written once (8 bytes a point; 1.25 us
+// for (32, 128^2) at 3.35 TB/s), against 6 FLOP a point.
+//   The row route (laplacian_rows_kernel; n = 128, 256 or 512, 16-byte
+//   aligned): one pass over memory that reads each row once. A warp owns
+//   an image row as float4 columns (lane L holds columns 4 (L + 32 c) ..
+//   +3 of chunk c, V = n / 128 chunks), so the left and right neighbours
+//   come by one __shfl each, lane 31's value sent to lane 0 carrying the
+//   wrap (and lane 0's to lane 31). A warp streams a band of R rows of one
+//   image (R = 2 at 128^2, 1 above): it holds the rows above, here and
+//   below in registers, the band and its two halo rows loaded at once, so
+//   a row is read once as the band's and once as a neighbour's halo, the
+//   halo reads hitting L2. Blocks of four warps, a grid of at most one wave
+//   of the SMs, striding over the bands. Bands of 4 and 8 rows (fewer
+//   halo reads, fewer warps in flight) were no faster at B = 1, 8, 32
+//   (variants.py), where a kernel's fixed cost is about that of the work
+//   at (32, 128^2) (chip_smoke.py phase 23).
+//   The general route (laplacian_kernel; any other n): one thread per
+//   output point, the five neighbours through the read-only cache, which
+//   serves the reuse between neighbouring threads.
 //
 // K5b, the trajectory (stencil_heat_trajectory): the heat generator runs
 // S snapshots of `inner` Heun steps (20 x 500 at 128^2). One step of a
@@ -65,6 +82,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace cg = cooperative_groups;
 
@@ -80,7 +98,7 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return r < 0 ? r + n : r;
 }
 
-// K5a: one thread per output point
+// K5a, the general route: one thread per output point
 __global__ void laplacian_kernel(const float* __restrict__ u, float* __restrict__ out,
                                  int n, float inv_dx2) {
   const int x = blockIdx.x * kThreadsX + threadIdx.x;
@@ -98,6 +116,80 @@ __global__ void laplacian_kernel(const float* __restrict__ u, float* __restrict_
   const float left = __ldg(ub + y * n + xm);
   const float right = __ldg(ub + y * n + xp);
   out[blockIdx.z * plane + y * n + x] = (up + down + left + right - 4.f * c) * inv_dx2;
+}
+
+// K5a, the row route: a band of R rows of one image a warp, V float4 chunks
+// a row, R V = kLapBand float4 rows (R at least 1; bands of 4 and 8 were no
+// faster at 128^2, variants.py)
+constexpr int kLapBand = 2;
+constexpr int kLapWarps = 4;
+
+template <int V>
+__global__ void __launch_bounds__(32 * kLapWarps)
+laplacian_rows_kernel(const float* __restrict__ u, float* __restrict__ out, int n, long long bands,
+                      float inv_dx2) {
+  constexpr int R = kLapBand / V > 0 ? kLapBand / V : 1;
+  const int lane = threadIdx.x & 31;
+  const int per_image = n / R;
+  for (long long band = (long long)blockIdx.x * kLapWarps + (threadIdx.x >> 5); band < bands;
+       band += (long long)gridDim.x * kLapWarps) {
+    const long long img = band / per_image;
+    const int y0 = (int)(band - img * per_image) * R;
+    const long long plane = (long long)n * n;
+    const float4* ub = reinterpret_cast<const float4*>(u + img * plane) + lane;
+    float4* ob = reinterpret_cast<float4*>(out + img * plane) + lane;
+    // rows y0 - 1 .. y0 + R, the first and last wrapped
+    float4 r[R + 2][V];
+#pragma unroll
+    for (int k = 0; k < R + 2; ++k) {
+      int y = y0 - 1 + k;
+      y = y < 0 ? y + n : y >= n ? y - n : y;
+#pragma unroll
+      for (int c = 0; c < V; ++c) r[k][c] = __ldg(ub + (long long)y * (n / 4) + 32 * c);
+    }
+#pragma unroll
+    for (int k = 1; k <= R; ++k)
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        const float4 up = r[k - 1][c], x = r[k][c], dn = r[k + 1][c];
+        // column 4 (L + 32 c) - 1 is lane L - 1's .w; lane 0's is lane 31's of
+        // chunk c - 1 (the wrap at c = 0), which lane 31 sends; the same on
+        // the right with lane 0 sending chunk c + 1's .x to lane 31
+        const float left = __shfl_sync(0xffffffffu, lane == 31 ? r[k][(c + V - 1) % V].w : x.w,
+                                       (lane + 31) & 31);
+        const float right = __shfl_sync(0xffffffffu, lane == 0 ? r[k][(c + 1) % V].x : x.x,
+                                        (lane + 1) & 31);
+        float4 o;
+        o.x = (up.x + dn.x + left + x.y - 4.f * x.x) * inv_dx2;
+        o.y = (up.y + dn.y + x.x + x.z - 4.f * x.y) * inv_dx2;
+        o.z = (up.z + dn.z + x.y + x.w - 4.f * x.z) * inv_dx2;
+        o.w = (up.w + dn.w + x.z + right - 4.f * x.w) * inv_dx2;
+        ob[(long long)(y0 + k - 1) * (n / 4) + 32 * c] = o;
+      }
+  }
+}
+
+// blocks of the row route: the bands' blocks, at most one wave of the SMs
+template <int V>
+cudaError_t launch_laplacian_rows(const float* u, float* out, int B, int n, float inv_dx2,
+                                  cudaStream_t st) {
+  constexpr int R = kLapBand / V > 0 ? kLapBand / V : 1;
+  static int wave = 0;  // blocks in one wave, asked once
+  if (wave == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, laplacian_rows_kernel<V>,
+                                                        32 * kLapWarps, 0);
+    if (e != cudaSuccess) return e;
+    wave = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long bands = (long long)B * (n / R);
+  const long long need = (bands + kLapWarps - 1) / kLapWarps;
+  const unsigned grid = (unsigned)(need < wave ? need : wave);
+  laplacian_rows_kernel<V><<<grid, 32 * kLapWarps, 0, st>>>(u, out, n, bands, inv_dx2);
+  return cudaSuccess;
 }
 
 struct Heat {
@@ -475,13 +567,27 @@ int invalid(int* launched) {
 
 extern "C" {
 
-// out = periodic 5-point Laplacian of u, both (B, n, n) contiguous.
+// out = periodic 5-point Laplacian of u, both (B, n, n) contiguous: the row
+// route for n = 128, 256, 512 with both 16-byte aligned, else the general
+// route; one launch either way.
 int stencil_laplacian(const float* u, float* out, int B, int n, float inv_dx2, void* stream,
                       int* launched) {
   if (B < 1 || B > 65535 || n < 1) return invalid(launched);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + kThreadsX - 1) / kThreadsX, (n + kThreadsY - 1) / kThreadsY, B);
-  laplacian_kernel<<<grid, dim3(kThreadsX, kThreadsY), 0, st>>>(u, out, n, inv_dx2);
+  cudaError_t e = cudaSuccess;
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  if (aligned && n == 128) e = launch_laplacian_rows<1>(u, out, B, n, inv_dx2, st);
+  else if (aligned && n == 256) e = launch_laplacian_rows<2>(u, out, B, n, inv_dx2, st);
+  else if (aligned && n == 512) e = launch_laplacian_rows<4>(u, out, B, n, inv_dx2, st);
+  else {
+    const dim3 grid((n + kThreadsX - 1) / kThreadsX, (n + kThreadsY - 1) / kThreadsY, B);
+    laplacian_kernel<<<grid, dim3(kThreadsX, kThreadsY), 0, st>>>(u, out, n, inv_dx2);
+  }
+  if (e != cudaSuccess) {
+    if (launched != nullptr) *launched = 0;
+    return (int)e;
+  }
   return finish(1, launched);
 }
 

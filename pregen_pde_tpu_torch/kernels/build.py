@@ -87,3 +87,36 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     if lib is None:
         lib = _loaded[key] = ctypes.CDLL(str(build(name, defines=defines)))
     return lib
+
+
+def build_variant(name: str, subs, tag: str, tree: Path | None = None) -> Path:
+    """Compile a copy of ``csrc/<name>.cu`` (of the checkout ``tree``, else
+    this one) with each ``(old, new)`` of ``subs`` substituted, old found
+    exactly once in the source or, failing that, in one ``csrc/*.cuh`` header
+    (copied beside it, so the copy's include wins), into this checkout's
+    ``_build/variants/<tag>/``; never into ``csrc/``, and nothing is written
+    under ``tree``. For mutants and timing variants. → the library's path."""
+    csrc = CSRC if tree is None else Path(tree) / "pregen_pde_tpu_torch" / "csrc"
+    out = BUILD_DIR / "variants" / tag
+    shutil.rmtree(out, ignore_errors=True)  # no header copy of an earlier variant
+    out.mkdir(parents=True)
+    files = {p.name: p.read_text() for p in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]}
+    changed = {f"{name}.cu"}
+    for old, new in subs:
+        hits = [f for f, text in files.items() if text.count(old) == 1]
+        if len(hits) != 1:
+            raise RuntimeError(f"variant {tag}: {old!r} is not in exactly one of "
+                               f"{sorted(files)} exactly once")
+        files[hits[0]] = files[hits[0]].replace(old, new)
+        changed.add(hits[0])
+    for f in changed:
+        (out / f).write_text(files[f])
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(f"cannot build variant {tag!r}: nvcc not found")
+    so = out / "lib.so"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(csrc), "-o", str(so),
+                           str(out / f"{name}.cu")], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed building variant {tag!r}:\n{proc.stderr}")
+    return so

@@ -28,7 +28,9 @@ def _grf(n: int, batch: int, seed: int, dtype=np.float64) -> np.ndarray:
     return to_numpy(grf_filter(torch.from_numpy(xi), SpectralGrid2D(n))).astype(dtype)
 
 
-@pytest.mark.parametrize("n", [32, 30])
+# 30, 33, 5, 7: n not a multiple of 4 (odd for the last three), the card's
+# general route; 32 its row route's float4 width
+@pytest.mark.parametrize("n", [32, 30, 33, 5, 7])
 def test_plain_laplacian_matches_pallas_kernel(n):
     u = _grf(n, 2, seed=n, dtype=np.float32)
     dx = 1.0 / n
