@@ -55,6 +55,12 @@ Phases (any failure exits nonzero; no phase catches a failure):
    [2:-2, 2:-2]) on a no-hole channel must be ≤ 2× the plain version's;
 9. the Ghia cavity through K2 at 128², Re 100 and 400: centreline
    deviations < 0.05/0.03 and < 0.07/0.06 (u/v), extrema within 8%;
+9a. the other two physical checks of the JAX package through K2: the
+   cylinder at Re_d 150, 128², t_end 80 (34,000 steps, a frame every step,
+   6.7 GB on the card, the probe and drag series reduced there) in exactly
+   one launch, with the JAX bands St in (0.15, 0.21), C_d in (1.0, 1.6) and
+   a probe amplitude > 0.2; and the Richardson triplet on 32/64/128 in
+   exactly three launches, order > 1.3;
 10. the masked main path: ``generate --workload fpo_multi_hole --n 32
     --resolution 128 --batch-size 32 --time-scale 1.0`` and ``--workload
     ldc_regular --n 8 --batch-size 8`` in subprocesses; each shard must be
@@ -187,6 +193,22 @@ Phases (any failure exits nonzero; no phase catches a failure):
     128, 128) shards, a > 0 and u ≥ 0, and the card's float32 u of two
     trajectories against a float64 CPU solve of the same a, relative L2
     ≤ 2e-5.
+26. FNO (modes 12, width 32, 4 layers) and FFNO (modes 12, width 48, 4
+    layers) at 128², B = 16, weights from seed 0, their spectral
+    convolutions through ``torch.fft``: the card's forward in float32 (TF32
+    off) against the same model in float64 on the CPU, relative L2 under
+    ``MODEL_VS_F64_BARS``, and every parameter's gradient of a relative-L2
+    loss (dropout off) under its own bar in ``MODEL_GRAD_VS_F64_BARS`` (each
+    bar about 10× the value measured on an H100; the values are printed
+    every run); ms per forward and per AdamW train step by events and as
+    device time. No hand-written kernel is on this path: the JAX package
+    computes both models in XLA;
+27. the CLI on phase 10's ``fpo_multi_hole`` shard: ``train`` with no
+    ``--model`` (FNO, the JAX CLI's default) ``--epochs 1 --batch-size 16
+    --ckpt``, then ``evaluate --ckpt best.pt`` with no ``--model``, then
+    ``mix-sweep --model ffno --alphas 0.5 --total-trajectories 16 --epochs
+    1`` with phase 21's ``fpo_regular`` shard as the easy half: each exits
+    0 and prints finite errors.
 
 The 1e-5 bar of K1 against the plain float32 version is about 30× what the
 two differ by when both are right (2.4e-7 vorticity, 3.6e-7 fields at the
@@ -231,6 +253,9 @@ once, outputs written once) over 3.35 TB/s and its float32 operations over
 K3's entries also carry ``bound_3xtf32_ms``, their products' FLOP three
 times over the 495 TFLOP/s of TF32 on the tensor cores.
 
+K2's entry of the kernels line also carries the launches of phase 9a's
+validation paths (``validation_launches``).
+
 Prints a kernels JSON line and the card line, then, as its last line,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It imports nothing of JAX.
@@ -253,6 +278,51 @@ K1_ABS_BAR = 2.6e-4
 K1_VS_PLAIN_BAR = 1e-5
 K2_VS_PLAIN_BAR = 7e-5
 GHIA_BARS = {100: (0.05, 0.03), 400: (0.07, 0.06)}
+# the JAX package's bands (tests/test_ns_projection.py:124-136)
+CYLINDER_BANDS = {"strouhal": (0.15, 0.21), "cd_mean": (1.0, 1.6), "amplitude": 0.2}
+CONVERGENCE_ORDER_BAR = 1.3
+# phase 26: FNO and FFNO on the card (float32, TF32 off) against the same
+# model in float64 on the CPU, relative L2 of the forward, about 10x the
+# measured value at 128², B = 16, seed 0 (NVIDIA H100)
+MODEL_VS_F64_BARS = {
+    "fno": 5e-6,    # measured 4.91e-07
+    "ffno": 3.3e-6,  # measured 3.27e-07
+}
+# each parameter's gradient of a relative-L2 loss, card vs CPU float64, as
+# measured at phase 26's inputs (NVIDIA H100); the bar is 10x each
+MODEL_GRAD_VS_F64_MEASURED = {
+    "fno": {
+        "Dense_0.bias": 5.28e-08, "Dense_0.weight": 1.92e-07, "Dense_1.bias": 4.54e-08,
+        "Dense_1.weight": 1.89e-07, "Dense_2.bias": 5.68e-08, "Dense_2.weight": 1.97e-07,
+        "Dense_3.bias": 5.84e-08, "Dense_3.weight": 2.05e-07, "Dense_4.bias": 6.86e-08,
+        "Dense_4.weight": 1.87e-07, "Dense_5.bias": 1.92e-07, "Dense_5.weight": 1.82e-07,
+        "Dense_6.bias": 3.79e-08, "Dense_6.weight": 2.82e-07,
+        "SpectralConv2d_0.w_neg_im": 2.24e-07, "SpectralConv2d_0.w_neg_re": 1.78e-07,
+        "SpectralConv2d_0.w_pos_im": 1.65e-07, "SpectralConv2d_0.w_pos_re": 7.41e-08,
+        "SpectralConv2d_1.w_neg_im": 1.87e-07, "SpectralConv2d_1.w_neg_re": 1.69e-07,
+        "SpectralConv2d_1.w_pos_im": 1.55e-07, "SpectralConv2d_1.w_pos_re": 7.84e-08,
+        "SpectralConv2d_2.w_neg_im": 1.99e-07, "SpectralConv2d_2.w_neg_re": 2.00e-07,
+        "SpectralConv2d_2.w_pos_im": 1.65e-07, "SpectralConv2d_2.w_pos_re": 7.16e-08,
+        "SpectralConv2d_3.w_neg_im": 1.86e-07, "SpectralConv2d_3.w_neg_re": 1.81e-07,
+        "SpectralConv2d_3.w_pos_im": 1.56e-07, "SpectralConv2d_3.w_pos_re": 9.26e-08,
+    },
+    "ffno": {
+        "ff_0_0.bias": 2.09e-07, "ff_0_0.g": 3.41e-07, "ff_0_0.v": 3.42e-07,
+        "ff_0_1.bias": 1.61e-07, "ff_0_1.g": 3.46e-07, "ff_0_1.v": 3.36e-07,
+        "ff_1_0.bias": 2.27e-07, "ff_1_0.g": 3.16e-07, "ff_1_0.v": 3.43e-07,
+        "ff_1_1.bias": 1.85e-07, "ff_1_1.g": 3.82e-07, "ff_1_1.v": 3.38e-07,
+        "ff_2_0.bias": 1.86e-07, "ff_2_0.g": 3.68e-07, "ff_2_0.v": 3.36e-07,
+        "ff_2_1.bias": 1.73e-07, "ff_2_1.g": 3.04e-07, "ff_2_1.v": 3.39e-07,
+        "ff_3_0.bias": 3.80e-07, "ff_3_0.g": 5.05e-07, "ff_3_0.v": 5.11e-07,
+        "ff_3_1.bias": 2.29e-07, "ff_3_1.g": 4.64e-07, "ff_3_1.v": 5.00e-07,
+        "head_0.bias": 3.53e-07, "head_0.g": 4.07e-07, "head_0.v": 4.17e-07,
+        "head_1.bias": 1.72e-07, "head_1.g": 3.90e-07, "head_1.v": 5.80e-07,
+        "in_proj.bias": 1.66e-07, "in_proj.g": 4.47e-07, "in_proj.v": 5.17e-07,
+        "w_x_im": 1.25e-06, "w_x_re": 1.01e-06, "w_y_im": 1.19e-06, "w_y_re": 1.12e-06,
+    },
+}
+MODEL_GRAD_VS_F64_BARS = {name: {k: 10 * v for k, v in leaves.items()}
+                          for name, leaves in MODEL_GRAD_VS_F64_MEASURED.items()}
 K3_VS_PLAIN_BAR = 2e-5
 SCOT_VS_PLAIN_BAR = 2.5e-5
 EVAL_VS_PLAIN_RTOL = 1e-4
@@ -785,11 +855,12 @@ def main(argv=None) -> None:
     }
     k2_line, fpo = k2_phases(dev, card, builds[npc.LIB_NAME], t0_build)
     k3_line, k4_line = scot_phases(dev, card, builds, t0_build, fpo, args.parent)
-    k3_bwd_line, k4_bwd_line = train_phases(dev, card, fpo)
+    k3_bwd_line, k4_bwd_line, fpo_regular = train_phases(dev, card, fpo)
     k5a_line, k5b_line = heat_phases(dev, card, builds[stencil.LIB_NAME], t0_build,
                                      builds["k5a_wrong_wrap"])
     pool.shutdown()
     simple_phases(card)
+    fno_phases(dev, card, fpo, fpo_regular)
     say(json.dumps({"kernels": [k1_line, k2_line, k3_line, k4_line, k3_bwd_line, k4_bwd_line,
                                 k5a_line, k5b_line]}))
     say(card)
@@ -812,7 +883,8 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
     from pregen_pde_tpu_torch.solvers import spectral_ns_cuda as snc
     from pregen_pde_tpu_torch.solvers.ns_projection import (
         ProjectionConfig, ProjectionSolver, parabolic_inlet)
-    from pregen_pde_tpu_torch.solvers.validation import run_cavity
+    from pregen_pde_tpu_torch.solvers.validation import (
+        convergence_order, run_cavity, run_cylinder)
     from pregen_pde_tpu_torch.utils.parity import per_snapshot_rel_l2
 
     # -- 7. K2's build (started in phase 2) -----------------------------------------
@@ -931,6 +1003,36 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
             if not abs(m - g) <= 0.08 * abs(g):
                 fail(f"Ghia Re={re}: {k} {m} vs {g} beyond 8%")
 
+    # -- 9a. the cylinder and the Richardson triplet through K2 ----------------------------
+    npc.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    r = run_cylinder(150.0, n=128, t_end=80.0, device=dev)
+    secs = time.perf_counter() - t0
+    cyl_launches = npc.launches
+    say(f"[9a] cylinder Re_d 150 128^2 t_end 80 through K2: St {r['strouhal']:.4f} (band "
+        f"{CYLINDER_BANDS['strouhal']}), C_d {r['cd_mean']:.4f} (band "
+        f"{CYLINDER_BANDS['cd_mean']}), probe amplitude {r['shedding_amplitude']:.4f} (bar > "
+        f"{CYLINDER_BANDS['amplitude']}); "
+        f"{r['steps']} steps dt {r['dt']:.5g}, a frame every step, {cyl_launches} K2 launch, "
+        f"{secs:.2f} s, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB | {card}")
+    lo_st, hi_st = CYLINDER_BANDS["strouhal"]
+    lo_cd, hi_cd = CYLINDER_BANDS["cd_mean"]
+    if not (cyl_launches == 1 and r["steps"] == 34000 and lo_st < r["strouhal"] < hi_st
+            and lo_cd < r["cd_mean"] < hi_cd
+            and r["shedding_amplitude"] > CYLINDER_BANDS["amplitude"]):
+        fail(f"cylinder through K2: {cyl_launches} launches, {r}")
+    npc.reset_launches()
+    t0 = time.perf_counter()
+    c = convergence_order(device=dev)
+    secs = time.perf_counter() - t0
+    conv_launches = npc.launches
+    say(f"[9a] grid convergence 32/64/128 through K2: order {c['order']:.4f} (bar > "
+        f"{CONVERGENCE_ORDER_BAR}), e_coarse {c['e_coarse']:.4e}, e_fine {c['e_fine']:.4e}, "
+        f"{c['steps']} steps a grid, {conv_launches} K2 launches, {secs:.2f} s | {card}")
+    if not (conv_launches == 3 and c["order"] > CONVERGENCE_ORDER_BAR):
+        fail(f"grid convergence through K2: {conv_launches} launches, {c}")
+
     # -- 10. the masked main path, through the CLI -----------------------------------------
     snc.reset_launches()
     npc.reset_launches()
@@ -1035,6 +1137,7 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
         "bound_by": k2_bound[1],
         "bound_3xtf32_ms": k2_bound_tf32,
         "library_ms": None,
+        "validation_launches": {"cylinder": cyl_launches, "convergence_order": conv_launches},
     }, fpo
 
 
@@ -1334,10 +1437,11 @@ def scot_phases(dev, card: str, builds: dict, t0_build: float, fpo,
     return k3_line, k4_line
 
 
-def train_phases(dev, card: str, fpo) -> tuple[dict, dict]:
+def train_phases(dev, card: str, fpo) -> tuple[dict, dict, object]:
     """Phases 17-21: the backward kernels of K4 and K3, one scOT-B train
     step in two routes, and the ``train`` and ``mix-sweep`` main paths. →
-    the kernels line's entries of K3's and K4's backward."""
+    the kernels line's entries of K3's and K4's backward, and phase 21's
+    ``fpo_regular`` shard."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1610,7 +1714,8 @@ def train_phases(dev, card: str, fpo) -> tuple[dict, dict]:
         from pregen_pde_tpu_torch.datagen.writer import load_shards
 
         easy_npy = os.path.join(work, "fpo_regular.npy")
-        np.save(easy_npy, load_shards(easy))
+        easy_data = load_shards(easy)
+        np.save(easy_npy, easy_data)
         cmd = [sys.executable, "-m", "pregen_pde_tpu_torch", "mix-sweep", "--model", "scot-B",
                "--hard", hard, "--easy", easy_npy, "--alphas", "0.5", "--total-trajectories",
                "16", "--epochs", "1", "--batch-size", "16"]
@@ -1633,7 +1738,7 @@ def train_phases(dev, card: str, fpo) -> tuple[dict, dict]:
             f"{alpha[0]['test_easy']['mean_rel_%']:.4f} %; launches {counts[0]} | {card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return k3_line, k4_line
+    return k3_line, k4_line, easy_data
 
 
 def graph_ms(fn, reps: int = 200) -> float:
@@ -1945,6 +2050,154 @@ def simple_phases(card: str) -> None:
         say(f"[25] darcy: a in [{a.min():.4f}, {a.max():.4f}], u in [{u.min():.3e}, "
             f"{u.max():.5f}]; u (card, float32) vs float64 CPU solve, trajectories 0 and 1: rel "
             f"L2 {errs[0]:.3e}, {errs[1]:.3e} (bar {DARCY_F32_VS_F64_BAR:.1e})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def model_phase(dev, card: str) -> None:
+    """Phase 26: FNO and FFNO at their default widths, 128², B = 16, weights
+    from seed 0, on the card against the same model in float64 on the CPU:
+    the forward and every parameter's gradient of a relative-L2 loss (in
+    ``eval()``, so FFNO's dropout is off), each under its bar; then ms per
+    forward and per AdamW train step by events and as device time."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pregen_pde_tpu_torch.models.ffno import FFNO2d
+    from pregen_pde_tpu_torch.models.fno import FNO2d
+    from pregen_pde_tpu_torch.profile_scot import event_ms
+    from pregen_pde_tpu_torch.training.losses import relative_lp_loss
+    from pregen_pde_tpu_torch.utils.parity import rel_l2
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((16, 128, 128, 7)).astype(np.float32)
+    x[..., 4] = rng.random((16, 128, 128)) < 0.2  # the contract's hole mask
+    y = rng.standard_normal((16, 128, 128, 3)).astype(np.float32)
+    xc, yc = torch.from_numpy(x), torch.from_numpy(y)
+    xd, yd = xc.to(dev), yc.to(dev)
+
+    def forward_and_grads(model, xx, yy):
+        """The forward and each parameter's gradient of the relative L2 loss
+        (p = 2: the L1 loss's sign flips where pred ≈ y would swamp a
+        float32-against-float64 comparison)."""
+        model.zero_grad(set_to_none=True)
+        out = model(xx)
+        relative_lp_loss(out, yy, p=2).backward()
+        return out.detach(), {k: q.grad for k, q in model.named_parameters()}
+
+    for name, cls in (("fno", FNO2d), ("ffno", FFNO2d)):
+        torch.manual_seed(0)  # weights from seed 0, as the CLI's
+        model = cls(7, 3).eval()
+        ref, ref_grads = forward_and_grads(copy.deepcopy(model).double(), xc.double(),
+                                           yc.double())
+        model = model.to(dev)
+        got, grads = forward_and_grads(model, xd, yd)
+        torch.cuda.synchronize()
+        err = rel_l2(got.cpu(), ref)
+        bar = MODEL_VS_F64_BARS[name]
+        say(f"[26] {name} 128², B=16, seed 0: card (float32, TF32 off) vs CPU float64 forward "
+            f"rel L2 {err:.3e} (bar {bar:.1e}) | {card}")
+        if not (torch.isfinite(got).all() and err <= bar):
+            fail(f"{name}: card vs CPU float64 forward rel L2 {err:.3e} > {bar:.1e}")
+        grad_bars = MODEL_GRAD_VS_F64_BARS[name]
+        if set(grad_bars) != set(grads):
+            fail(f"{name}: gradient bars for {sorted(grad_bars)}, parameters {sorted(grads)}")
+        worst = []
+        for k, g in grads.items():
+            gerr = rel_l2(g.cpu(), ref_grads[k])
+            worst.append((gerr / grad_bars[k], k, gerr))
+            if not (torch.isfinite(g).all() and gerr <= grad_bars[k]):
+                fail(f"{name}: gradient of {k} card vs CPU float64 rel L2 {gerr:.3e} > "
+                     f"{grad_bars[k]:.1e}")
+        say(f"[26] {name} gradients of a relative-L2 loss, card vs CPU float64, per parameter: "
+            + ", ".join(f"{k} {e:.2e}" for _, k, e in sorted(worst, key=lambda w: w[1]))
+            + f"; closest to its bar {max(worst)[1]} at {max(worst)[0]:.2f} of it | {card}")
+        with torch.no_grad():
+            fwd = (event_ms(lambda: model(xd), 10), device_ms(lambda: model(xd)))
+        model.train()
+        if name == "ffno":  # the backcast dropout is on in training
+            model.set_dropout_generator(torch.Generator(device=dev).manual_seed(1))
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4)
+
+        def step():
+            loss = relative_lp_loss(model(xd), yd, p=1)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+
+        train = (event_ms(step, 10), device_ms(step))
+        say(f"[26] {name} 128², B=16: forward {fwd[0]:.3f} ms by events, {fwd[1]:.3f} ms "
+            f"device; train step {train[0]:.3f} ms by events, {train[1]:.3f} ms device | {card}")
+        del model, opt
+
+
+def fno_phases(dev, card: str, fpo, fpo_regular) -> None:
+    """Phases 26-27: FNO and FFNO, the JAX CLI's default model and its
+    factorised sibling (plain PyTorch: the JAX package runs them in XLA,
+    outside any Pallas kernel), on the card against float64 on the CPU and
+    timed; then ``train``, ``evaluate`` and ``mix-sweep`` with them through
+    the CLI on phase 10's and phase 21's shards."""
+    import numpy as np
+
+    model_phase(dev, card)
+
+    # -- 27. the CLI with FNO by default, and FFNO ---------------------------------------------
+    from pregen_pde_tpu_torch.kernels import build
+
+    work = tempfile.mkdtemp(prefix="smoke_fno_", dir=build.BUILD_DIR)
+    try:
+        hard = os.path.join(work, "fpo_multi_hole.npy")
+        easy = os.path.join(work, "fpo_regular.npy")
+        np.save(hard, fpo)
+        np.save(easy, fpo_regular)
+        ckpt = os.path.join(work, "ckpt")
+
+        def cli(*argv):
+            cmd = [sys.executable, "-m", "pregen_pde_tpu_torch", *argv]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            if r.returncode != 0:
+                fail(f"{argv[0]} rc {r.returncode}:\n{r.stdout[-2000:]}\n"
+                     f"{r.stderr[-4000:]}")
+            return [json.loads(l) for l in r.stdout.splitlines() if l.startswith("{")], wall
+
+        lines, wall = cli("train", "--data", hard, "--epochs", "1", "--batch-size", "16",
+                          "--ckpt", ckpt)
+        rec = [l for l in lines if "epoch" in l]
+        counts = [l["kernel_launches"] for l in lines if "kernel_launches" in l]
+        if len(rec) != 1 or len(counts) != 1:
+            fail(f"train (FNO) printed no epoch or launch line: {lines}")
+        numbers = [rec[0]["train_loss"], rec[0]["val_mean_rel_%"]]
+        if not (np.isfinite(numbers).all() and os.path.isfile(os.path.join(ckpt, "best.pt"))):
+            fail(f"train (FNO): non-finite numbers or no best.pt: {lines}")
+        say(f"[27] train (no --model: FNO) --data fpo_multi_hole --epochs 1 --batch-size 16: "
+            f"{wall:.2f} s wall incl. start-up; {rec[0]['time_s']:.2f} s for the epoch's steps; "
+            f"train loss {rec[0]['train_loss']:.5f}, val mean {rec[0]['val_mean_rel_%']:.4f} %; "
+            f"launches {counts[0]} (FNO runs no hand-written kernel) | {card}")
+        lines, wall = cli("evaluate", "--data", hard, "--ckpt", os.path.join(ckpt, "best.pt"),
+                          "--batch-size", "16")
+        res = [l for l in lines if "patterns" in l]
+        if len(res) != 1 or not np.isfinite(flat_numbers(res[0])).all():
+            fail(f"evaluate (FNO) of best.pt: no finite result: {lines}")
+        say(f"[27] evaluate (no --model: FNO) --ckpt best.pt: {wall:.2f} s wall incl. start-up; "
+            f"[7] median rel {res[0]['patterns']['[7]']['median_rel_%']:.4f} %, all "
+            f"{flat_numbers(res[0]).size} numbers finite | {card}")
+        lines, wall = cli("mix-sweep", "--model", "ffno", "--hard", hard, "--easy", easy,
+                          "--alphas", "0.5", "--total-trajectories", "16", "--epochs", "1",
+                          "--batch-size", "16")
+        alpha = [l for l in lines if l.get("alpha") == 0.5]
+        if len(alpha) != 1 or lines[-1].keys() != {"0.5"}:
+            fail(f"mix-sweep (FFNO) output malformed: {lines}")
+        split_numbers = [v for k in ("test_hard", "test_easy") for v in alpha[0][k].values()]
+        if not np.isfinite(split_numbers).all():
+            fail(f"mix-sweep (FFNO): non-finite test numbers: {lines}")
+        say(f"[27] mix-sweep --model ffno --alphas 0.5 --total-trajectories 16 --epochs 1: "
+            f"{wall:.2f} s wall incl. start-up; test_hard mean "
+            f"{alpha[0]['test_hard']['mean_rel_%']:.4f} %, test_easy mean "
+            f"{alpha[0]['test_easy']['mean_rel_%']:.4f} % | {card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

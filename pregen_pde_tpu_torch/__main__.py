@@ -4,9 +4,10 @@
     python -m pregen_pde_tpu_torch generate --workload fpo_multi_hole --n 128 \
         --time-scale 1.0 --out dir/
     python -m pregen_pde_tpu_torch generate --workload heat --n 128 --out dir/
-    python -m pregen_pde_tpu_torch evaluate --model scot-B --data d.npy --ckpt w.npz
+    python -m pregen_pde_tpu_torch train --data d.npy --ckpt dir/        # FNO
+    python -m pregen_pde_tpu_torch evaluate --data d.npy --ckpt dir/best.pt
     python -m pregen_pde_tpu_torch train --model scot-B --data d.npy --ckpt dir/
-    python -m pregen_pde_tpu_torch mix-sweep --model scot-B --hard h.npy --easy e.npy
+    python -m pregen_pde_tpu_torch mix-sweep --model ffno --hard h.npy --easy e.npy
 
 ``generate``: the same flags as ``python -m pregen_pde_tpu generate`` for the
 spectral-NS workload, the four masked-geometry workloads (fpo_regular,
@@ -17,16 +18,21 @@ kernel K5b on a CUDA device). ``--method`` applies to ns_spectral only;
 on a line of its own (and, for a masked workload, the sub-bucket and retry
 counts on another), then one JSON summary line.
 
+``--model`` of ``evaluate``, ``train`` and ``mix-sweep`` is ``fno`` (the
+default, as in the JAX CLI), ``ffno``, ``scot`` or ``scot-T/S/B/L`` (scot =
+scot-T), each built from the dataset's channels; ``cno`` is a later slice
+and raises.
+
 ``evaluate``: the contract-npy form of ``python -m pregen_pde_tpu
-evaluate`` for scOT (``--model scot`` or ``scot-T/S/B/L``): AR rollout
-patterns and the accumulation error on the test split, printed as the same
-``{"patterns": ..., "accumulation": ...}`` JSON after a line with the K3 and
-K4 launch counts. ``--ckpt`` is an ``.npz`` of the flax parameter tree
+evaluate``: AR rollout patterns and the accumulation error on the test
+split, printed as the same ``{"patterns": ..., "accumulation": ...}`` JSON
+after a line with the K3 and K4 launch counts (0 for FNO and FFNO, which
+run no kernel). ``--ckpt`` is an ``.npz`` of the flax parameter tree
 flattened with ``/`` or a ``.pt`` state_dict of the port.
 
-``train``: the contract-npy form of ``python -m pregen_pde_tpu train`` for
-scOT: the time-pair split and transition grammar, the trainer with the
-JAX defaults (and the scOT learning-rate tiers with ``--lr-embedding`` /
+``train``: the contract-npy form of ``python -m pregen_pde_tpu train``:
+the time-pair split and transition grammar, the trainer with the JAX
+defaults (and the scOT learning-rate tiers with ``--lr-embedding`` /
 ``--lr-time-embedding``), the loader with seed 0, ``fit`` with a val
 loader. Prints the K3/K4 forward and backward launch counts, then one JSON
 record per epoch and ``{"best_mean_val_rel_%": ...}``. ``--ckpt DIR`` writes
@@ -34,10 +40,10 @@ the best parameters as ``DIR/best.pt`` (a state_dict that ``evaluate
 --ckpt`` reads); ``--resume`` loads it before training (parameters only,
 the epochs restart).
 
-``mix-sweep``: ``python -m pregen_pde_tpu mix-sweep`` for scOT: per α a
-hard/easy mix, a fresh model, ``fit`` with hard and easy val loaders, the
-best parameters, then the hard and easy test splits; one JSON line per α
-and the results.
+``mix-sweep``: ``python -m pregen_pde_tpu mix-sweep``: per α a hard/easy
+mix, a fresh model, ``fit`` with hard and easy val loaders, the best
+parameters, then the hard and easy test splits; one JSON line per α and
+the results.
 
 All take ``--device`` (default ``cuda``; raises when CUDA is asked for and
 absent; ``cpu`` runs the plain versions of the kernels). What the training
@@ -183,28 +189,55 @@ def _cmd_generate(args):
           flush=True)
 
 
+PORTED_MODELS = "fno, ffno, scot or scot-{T,S,B,L}"
+MODEL_HELP = ("fno (the default, as in the JAX CLI), ffno, scot or scot-T/S/B/L (scot = "
+              "scot-T); cno is a later slice")
+
+
 def _scot_size(name: str) -> str:
-    """The scOT size letter of ``--model``; other families raise."""
+    """The scOT size letter of ``--model scot[-X]``; an unknown size raises."""
     from pregen_pde_tpu_torch.models.scot import MODEL_SIZES
 
     size = name.split("-")[1].upper() if "-" in name else "T"
-    if not name.startswith("scot") or size not in MODEL_SIZES:
-        raise SystemExit(f"model {name!r} is not ported (the other model families are a later "
-                         f"slice); the port takes scot or scot-{{{','.join(MODEL_SIZES)}}}")
+    if size not in MODEL_SIZES:
+        raise SystemExit(f"unknown scOT size in {name!r}; the port takes {PORTED_MODELS}")
     return size
+
+
+def _check_model(name: str) -> None:
+    """``--model`` as the JAX CLI's dispatch reads it; CNO (a later slice)
+    and unknown names raise before any data is read."""
+    if name == "cno":
+        raise SystemExit("model 'cno' is not ported yet: CNO and its ops are a later slice; "
+                         f"the port takes {PORTED_MODELS}")
+    if name.startswith("scot"):
+        _scot_size(name)
+    elif name not in ("fno", "ffno"):
+        raise SystemExit(f"unknown model {name!r}; the port takes {PORTED_MODELS}")
 
 
 def _make_model(name: str, in_size: int, in_channels: int = 7, out_channels: int = 3,
                 impl: str = "auto"):
-    """scOT from dataset-derived dims (``_make_model`` of the JAX CLI); the
-    other model families wait for later slices. ``impl`` sets both
-    lowerings (``models/scot.py``): "auto" is the kernels on a CUDA device."""
+    """The model from dataset-derived dims (``_make_model`` of the JAX CLI):
+    FNO and FFNO at the JAX defaults (their truncated-DFT route), or scOT.
+    ``impl`` sets scOT's two lowerings (``models/scot.py``): "auto" is the
+    kernels on a CUDA device."""
+    _check_model(name)
+    if impl != "auto" and not name.startswith("scot"):
+        raise ValueError(f"impl {impl!r} applies to scOT only, not {name!r}")
+    if name == "fno":
+        from pregen_pde_tpu_torch.models.fno import FNO2d
+
+        return FNO2d(in_channels=in_channels, out_channels=out_channels)
+    if name == "ffno":
+        from pregen_pde_tpu_torch.models.ffno import FFNO2d
+
+        return FFNO2d(in_channels=in_channels, out_channels=out_channels)
     from pregen_pde_tpu_torch.models.scot import MODEL_SIZES, ScOT, ScOTConfig
 
-    size = _scot_size(name)
     return ScOT(ScOTConfig(image_size=in_size, num_channels=in_channels,
                            num_out_channels=out_channels, attention_impl=impl, block_impl=impl,
-                           **MODEL_SIZES[size]))
+                           **MODEL_SIZES[_scot_size(name)]))
 
 
 def _evaluate_ckpt(ckpt, model_name, data, patterns_str, batch_size, device,
@@ -221,7 +254,8 @@ def _evaluate_ckpt(ckpt, model_name, data, patterns_str, batch_size, device,
                          n_val=max(2, data.shape[0] // 10), n_test=max(2, data.shape[0] // 10))
     train = TimePairDataset(data, cfg, "train")
     test = TimePairDataset(data, cfg, "test", mean=train.mean, std=train.std)
-    model = _make_model(model_name, data.shape[2], impl=impl)
+    model = _make_model(model_name, data.shape[2], in_channels=train.in_channels,
+                        out_channels=train.out_channels, impl=impl)
     load_checkpoint(model, ckpt)
     model = model.to(device).eval()
     patterns = [[int(x) for x in p.strip("[] ").split(",")] for p in patterns_str.split(";")]
@@ -241,6 +275,7 @@ def _cmd_evaluate(args):
     from pregen_pde_tpu_torch.ops import swin_block, window_attention
     from pregen_pde_tpu_torch.utils.device import resolve_device
 
+    _check_model(args.model)
     if args.dataset or args.data_dir or args.ar_steps:
         raise SystemExit("evaluate on the benchmark datasets (--dataset/--data-dir, "
                          "--ar-steps) is not ported yet; pass a contract .npy with --data")
@@ -309,7 +344,7 @@ def _refuse_unported_train(args) -> None:
             raise SystemExit(why)
     if args.data is None:
         raise SystemExit("train needs --data <contract.npy>")
-    _scot_size(args.model)
+    _check_model(args.model)
 
 
 def _build_trainer(args, model, device, ckpt=None):
@@ -388,7 +423,7 @@ def _cmd_mix_sweep(args):
     from pregen_pde_tpu_torch.training.trainer import Trainer, TrainerConfig
     from pregen_pde_tpu_torch.utils.device import resolve_device
 
-    _scot_size(args.model)  # an unported --model raises before any load
+    _check_model(args.model)  # an unported --model raises before any load
     device = resolve_device(args.device)
     hard = np.asarray(np.load(args.hard, mmap_mode="r"))
     easy = np.asarray(np.load(args.easy, mmap_mode="r"))
@@ -399,7 +434,9 @@ def _cmd_mix_sweep(args):
     results = {}
     for alpha in [float(a) for a in args.alphas.split(",")]:
         train, vh, ve, th, te = make_mixed_datasets(hard, easy, alpha, args.total_trajectories, cfg)
-        trainer = Trainer(_seeded_model(args.model, hard.shape[2]),
+        model = _seeded_model(args.model, hard.shape[2], in_channels=vh.in_channels,
+                              out_channels=vh.out_channels)
+        trainer = Trainer(model,
                           TrainerConfig(learning_rate=args.lr, epochs=args.epochs,
                                         batch_size=args.batch_size), device=device)
         loader = lambda ds: BatchLoader(ds, args.batch_size, shuffle=False)
@@ -457,7 +494,7 @@ def main(argv=None):
     g.set_defaults(fn=_cmd_generate)
 
     e = sub.add_parser("evaluate")
-    e.add_argument("--model", required=True, help="scot, or scot-T/S/B/L (scot = scot-T)")
+    e.add_argument("--model", default="fno", help=MODEL_HELP)
     e.add_argument("--data", default=None, help="contract .npy path")
     e.add_argument("--dataset", default=None, help="not ported yet (raises)")
     e.add_argument("--data-dir", default=None, help="not ported yet (raises)")
@@ -473,7 +510,7 @@ def main(argv=None):
     e.set_defaults(fn=_cmd_evaluate)
 
     t = sub.add_parser("train")
-    t.add_argument("--model", default="fno", help="scot, or scot-T/S/B/L (scot = scot-T)")
+    t.add_argument("--model", default="fno", help=MODEL_HELP)
     t.add_argument("--data", default=None, help="contract .npy path")
     t.add_argument("--dataset", default=None, help="not ported yet (raises)")
     t.add_argument("--data-dir", default=None, help="not ported yet (raises)")
@@ -508,7 +545,7 @@ def main(argv=None):
     t.set_defaults(fn=_cmd_train)
 
     m = sub.add_parser("mix-sweep")
-    m.add_argument("--model", default="fno", help="scot, or scot-T/S/B/L (scot = scot-T)")
+    m.add_argument("--model", default="fno", help=MODEL_HELP)
     m.add_argument("--hard", required=True)
     m.add_argument("--easy", required=True)
     m.add_argument("--alphas", default="0.0,0.25,0.5,0.75,1.0")

@@ -1,9 +1,9 @@
-"""scOT checkpoints: a flax parameter tree → the port's state_dict, and the
-``--ckpt`` loader of ``evaluate``.
+"""Checkpoints of the port's models (scOT, FNO, FFNO): a flax parameter
+tree → the port's state_dict, and the ``--ckpt`` loader of ``evaluate``.
 
-The port's modules carry the flax names (``models/scot.py``), so a flax
-path maps to a state_dict key by joining with ``.``; only the layouts
-differ:
+The port's modules carry the flax names (``models/scot.py``, ``fno.py``,
+``ffno.py``), so a flax path maps to a state_dict key by joining with ``.``;
+only the layouts differ:
 
 - Dense ``kernel`` (in, out) → ``weight`` (out, in);
 - Conv ``kernel`` HWIO → ``weight`` OIHW (the depthwise (7, 7, 1, C) too);
@@ -12,10 +12,12 @@ differ:
   flipped in both spatial axes;
 - every other leaf (``logit_scale``, ``layer_scale``, ``scale``/``bias`` of
   an unconditioned LayerNorm, ``mask_token``, ``pos_embed``, batch-norm
-  affines) as it is.
+  affines, FNO's and FFNO's spectral weights, ``WNDense``'s ``v`` (in, out)
+  and ``g``) as it is.
 
-The fused and plain routes share this one state_dict, as both JAX routes
-share one tree.
+The kernel and plain routes of scOT share this one state_dict, as the JAX
+routes share one tree; FNO's and FFNO's ``torch.fft`` route reads the tree
+of JAX's truncated-DFT route as it is.
 """
 
 from __future__ import annotations
@@ -40,13 +42,14 @@ def flatten(params: dict, prefix: str = "") -> dict:
     return out
 
 
-def scot_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
-    """A flax scOT parameter tree (nested, or flattened with ``/``-joined
-    paths) of numpy arrays → the port's ``ScOT`` state_dict (float32)."""
+def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """A flax parameter tree of scOT, FNO or FFNO (nested, or flattened with
+    ``/``-joined paths) of numpy arrays → the port's state_dict of the same
+    model (float32)."""
     sd = {}
     for path, value in flatten(params).items():
         parts = path.split("/")
-        a = np.asarray(value, dtype=np.float32)
+        a = np.array(value, dtype=np.float32)  # a writable copy
         if parts[-1] == "kernel":
             parts[-1] = "weight"
             if a.ndim == 2:
@@ -70,7 +73,7 @@ def load_checkpoint(model: torch.nn.Module, path: str | Path) -> None:
         raise FileNotFoundError(f"no checkpoint file at {path}")
     if path.suffix == ".npz":
         with np.load(path) as z:
-            sd = scot_state_dict_from_flax({k: z[k] for k in z.files})
+            sd = state_dict_from_flax({k: z[k] for k in z.files})
     elif path.suffix == ".pt":
         sd = torch.load(path, map_location="cpu", weights_only=True)
     else:

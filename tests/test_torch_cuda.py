@@ -675,3 +675,50 @@ def test_k5b_trajectory_tiled_above_the_resident_limit():
     ref = stencil.heat_trajectory_plain(u0, 3, 10, 1.0 / n, 1e-2, 1e-4, 0.0)
     assert torch.equal(got[:, 0], u0)
     assert per_snapshot_rel_l2(got, ref).max() <= HEAT_ROUTE_VS_PLAIN_BAR
+
+
+@pytest.mark.cuda
+def test_cylinder_and_convergence_through_k2():
+    """The JAX package's bands through K2: the cylinder at Re_d 150, 128²,
+    t_end 80 in one launch (St 0.1706, C_d 1.224, amplitude 0.666 measured
+    on an H100) and the Richardson order in three (1.497)."""
+    _need_cuda()
+    from pregen_pde_tpu_torch.solvers.validation import convergence_order, run_cylinder
+
+    npc.reset_launches()
+    r = run_cylinder(150.0, n=128, t_end=80.0)
+    assert npc.launches == 1 and r["steps"] == 34000
+    assert r["shedding_amplitude"] > 0.2, r
+    assert 0.15 < r["strouhal"] < 0.21, r
+    assert 1.0 < r["cd_mean"] < 1.6, r
+    npc.reset_launches()
+    c = convergence_order()
+    assert npc.launches == 3 and c["order"] > 1.3, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fno", "ffno"])
+def test_fno_ffno_card_forward_matches_cpu_f64(name):
+    """FNO and FFNO at their default widths, 128², B = 4, weights from seed
+    0: the card's float32 forward (TF32 off) against the same model in
+    float64 on the CPU, relative L2 ≤ 5e-6 (3.3e-7 to 4.9e-7 measured at
+    B = 16 on an H100)."""
+    _need_cuda()
+    import copy
+
+    from pregen_pde_tpu_torch.models.ffno import FFNO2d
+    from pregen_pde_tpu_torch.models.fno import FNO2d
+    from pregen_pde_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda")
+    torch.manual_seed(0)
+    model = {"fno": FNO2d, "ffno": FFNO2d}[name](7, 3).eval()
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4, 128, 128, 7)).astype(np.float32)
+    x[..., 4] = rng.random((4, 128, 128)) < 0.2
+    x = torch.from_numpy(x)
+    with torch.no_grad():
+        ref = copy.deepcopy(model).double()(x.double())
+        got = model.to(dev)(x.to(dev)).cpu()
+    assert torch.isfinite(got).all()
+    assert rel_l2(got, ref) <= 5e-6

@@ -20,7 +20,7 @@ from pregen_pde_tpu_torch.__main__ import _make_model, main
 from pregen_pde_tpu_torch.evalx.inference import accumulation_error
 from pregen_pde_tpu_torch.evalx.rollout import evaluate_patterns
 from pregen_pde_tpu_torch.models import scot as tscot
-from pregen_pde_tpu_torch.models.convert import load_checkpoint, scot_state_dict_from_flax
+from pregen_pde_tpu_torch.models.convert import load_checkpoint, state_dict_from_flax
 from pregen_pde_tpu_torch.training import datasets as tds
 
 from test_torch_scot import KW, _flax_params, _one_torch_thread  # noqa: F401 (autouse)
@@ -62,7 +62,7 @@ def test_slice_matches_jax_evaluate(tmp_path):
     np.savez(ckpt, **traverse_util.flatten_dict(params, sep="/"))
     model = tscot.ScOT(tscot.ScOTConfig(**KW))
     load_checkpoint(model, ckpt)
-    for k, v in scot_state_dict_from_flax(params).items():
+    for k, v in state_dict_from_flax(params).items():
         torch.testing.assert_close(model.state_dict()[k], v, rtol=0, atol=0)
     model.eval()
 
@@ -103,7 +103,7 @@ def test_cli_evaluate_cpu(tmp_path, capsys):
         with pytest.raises(SystemExit, match=match):
             main(argv)
     with pytest.raises(SystemExit, match="not ported"):
-        main(["evaluate", "--model", "fno", "--data", str(data_path), "--ckpt", str(ckpt),
+        main(["evaluate", "--model", "cno", "--data", str(data_path), "--ckpt", str(ckpt),
               "--device", "cpu"])
     if not torch.cuda.is_available():  # the default device is the card, never the CPU
         with pytest.raises(RuntimeError, match="cuda"):

@@ -52,3 +52,17 @@ def test_port_sources_have_no_jax_package_imports():
             bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names
                     if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_scan_covers_every_slice_module():
+    """The two checks above walk the package; the modules each slice adds
+    are among what they import and scan (this slice's: the validation
+    checks, FNO and FFNO)."""
+    modules = set(_modules())
+    for m in ("pregen_pde_tpu_torch.solvers.validation", "pregen_pde_tpu_torch.models.fno",
+              "pregen_pde_tpu_torch.models.ffno",
+              "pregen_pde_tpu_torch.models.convert", "pregen_pde_tpu_torch.__main__"):
+        assert m in modules, m
+    sources = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    assert {"pregen_pde_tpu_torch/models/fno.py", "pregen_pde_tpu_torch/models/ffno.py",
+            "chip_smoke.py"} <= sources

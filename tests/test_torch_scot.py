@@ -6,7 +6,7 @@ the dispatch of a layer on a CUDA device.
 Every flax parameter is drawn from a seeded numpy normal (the tree's
 shapes from ``jax.eval_shape`` of the init; N(0, 0.1) around 1 for scales,
 log 10 for the logit scale, 0 elsewhere, so the CondLN time maps, zero at
-init, are exercised) and carried across with ``scot_state_dict_from_flax``;
+init, are exercised) and carried across with ``state_dict_from_flax``;
 the same numpy inputs go to both packages. The whole JAX model runs jitted
 (one compile is cheaper than the first eager call of its few hundred ops). The kernels themselves run only on a card
 (``tests/test_torch_cuda.py``).
@@ -25,7 +25,7 @@ from pregen_pde_tpu.models import scot as jscot
 from pregen_pde_tpu.ops import swin_block as jsb
 from pregen_pde_tpu.ops.window_attention import window_attention as jax_window_attention
 from pregen_pde_tpu_torch.models import scot as tscot
-from pregen_pde_tpu_torch.models.convert import scot_state_dict_from_flax
+from pregen_pde_tpu_torch.models.convert import state_dict_from_flax
 from pregen_pde_tpu_torch.ops import swin_block as tsb
 from pregen_pde_tpu_torch.ops import window_attention as twa
 
@@ -84,7 +84,7 @@ def _scot_params(use_conditioning):
 
 
 def _port(module, params):
-    module.load_state_dict(scot_state_dict_from_flax(params))
+    module.load_state_dict(state_dict_from_flax(params))
     return module.eval()
 
 

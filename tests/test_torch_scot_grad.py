@@ -5,7 +5,7 @@ its reference, the port's ``autograd.Function``s on CPU tensors, and the
 whole model's loss and parameter gradients against ``jax.value_and_grad``.
 
 Inputs are seeded numpy arrays handed to both packages; the JAX weights
-are carried across with ``scot_state_dict_from_flax`` (the same linear
+are carried across with ``state_dict_from_flax`` (the same linear
 layout maps take the gradient trees across). The kernels themselves run
 only on a card (``tests/test_torch_cuda.py``).
 """
@@ -24,7 +24,7 @@ from pregen_pde_tpu.ops import swin_block as jsb
 from pregen_pde_tpu.ops.window_attention import window_attention as jax_window_attention
 from pregen_pde_tpu.training.losses import relative_lp_loss as jax_relative_lp_loss
 from pregen_pde_tpu_torch.models import scot as tscot
-from pregen_pde_tpu_torch.models.convert import scot_state_dict_from_flax
+from pregen_pde_tpu_torch.models.convert import state_dict_from_flax
 from pregen_pde_tpu_torch.ops import cpb_bias as tcpb
 from pregen_pde_tpu_torch.ops import swin_block as tsb
 from pregen_pde_tpu_torch.ops import window_attention as twa
@@ -246,14 +246,14 @@ def test_scot_loss_and_gradients_match_jax(route):
     impl = {"plain": {}, "attention_fused": {"attention_impl": "fused"},
             "block_fused": {"block_impl": "fused"}}[route]
     model = tscot.ScOT(tscot.ScOTConfig(**SMALL, **impl))
-    model.load_state_dict(scot_state_dict_from_flax(params))
+    model.load_state_dict(state_dict_from_flax(params))
     model.train()
     loss = relative_lp_loss(model(torch.from_numpy(x), torch.from_numpy(t)).float(),
                             torch.from_numpy(y))
     loss.backward()
     loss = loss.detach()
     np.testing.assert_allclose(loss.item(), ref_loss, rtol=1e-5)
-    ref = scot_state_dict_from_flax(ref_grads)
+    ref = state_dict_from_flax(ref_grads)
     names = [n for n, _ in model.named_parameters()]
     assert sorted(names) == sorted(ref)
     errs = {n: rel_l2(p.grad, ref[n]) for n, p in model.named_parameters()}

@@ -4,7 +4,7 @@ the JAX ``Trainer``, the loader's batches, the ``train``/``mix-sweep`` CLI on
 the CPU, and the law of drop-path.
 
 Weights and data are seeded numpy arrays handed to both packages; the JAX
-weights are carried across with ``scot_state_dict_from_flax``.
+weights are carried across with ``state_dict_from_flax``.
 """
 
 import json
@@ -25,7 +25,7 @@ from pregen_pde_tpu.training import trainer as jtrainer
 from pregen_pde_tpu.training.native_loader import make_batch_loader
 from pregen_pde_tpu_torch.__main__ import main
 from pregen_pde_tpu_torch.models import scot as tscot
-from pregen_pde_tpu_torch.models.convert import scot_state_dict_from_flax
+from pregen_pde_tpu_torch.models.convert import state_dict_from_flax
 from pregen_pde_tpu_torch.training import datasets as tds
 from pregen_pde_tpu_torch.training import losses as tlosses
 from pregen_pde_tpu_torch.training import tiers as ttiers
@@ -89,7 +89,7 @@ def test_optimizer_matches_optax(schedule, tiered):
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
     state = tx.init(jparams)
 
-    named = {k: torch.nn.Parameter(v.clone()) for k, v in scot_state_dict_from_flax(params).items()}
+    named = {k: torch.nn.Parameter(v.clone()) for k, v in state_dict_from_flax(params).items()}
     tier = dict(tier_fn=ttiers.scot_tier_of, tier_decay=ttiers.SCOT_TIER_DECAY) if tiered else {}
     opt = build_optimizer(ttrainer.TrainerConfig(**kw), 3, named.items(), **tier)
     assert len(opt.groups) == (4 if tiered else 1)
@@ -101,10 +101,10 @@ def test_optimizer_matches_optax(schedule, tiered):
         grads = jax.tree_util.tree_unflatten(treedef, [(x * scale).astype(np.float32) for x in g])
         updates, state = tx.update(jax.tree_util.tree_map(jnp.asarray, grads), state, jparams)
         jparams = optax.apply_updates(jparams, updates)
-        for name, gr in scot_state_dict_from_flax(grads).items():
+        for name, gr in state_dict_from_flax(grads).items():
             named[name].grad = gr.clone()
         opt.step()
-    ref = scot_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jparams))
+    ref = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jparams))
     for name, p in named.items():
         np.testing.assert_allclose(p.detach().numpy(), ref[name].numpy(), rtol=1e-6, atol=1e-9,
                                    err_msg=name)
@@ -190,7 +190,7 @@ def test_fit_matches_jax_trainer(tmp_path):
     ref = jt.fit(jloader, {"val": jds.BatchLoader(jval, 4, shuffle=False)})["history"]
 
     model = tscot.ScOT(tscot.ScOTConfig(**TINY))
-    model.load_state_dict(scot_state_dict_from_flax(params))
+    model.load_state_dict(state_dict_from_flax(params))
     ttrain, tval = _splits(tds, data)
     tloader = tds.BatchLoader(ttrain, 4, seed=0)
     tt = ttrainer.Trainer(model, ttrainer.TrainerConfig(**kw, ckpt_dir=str(tmp_path)), device="cpu")
@@ -279,7 +279,7 @@ def test_cli_train_evaluate_mix_sweep_cpu(tmp_path, capsys):
         with pytest.raises(SystemExit, match=match):
             main(base + extra)
     with pytest.raises(SystemExit, match="not ported"):
-        main(["train", "--model", "fno", "--data", str(hard), "--device", "cpu"])
+        main(["train", "--model", "cno", "--data", str(hard), "--device", "cpu"])
     if not torch.cuda.is_available():  # the default device is the card, never the CPU
         with pytest.raises(RuntimeError, match="cuda"):
             main(base[:-2])
