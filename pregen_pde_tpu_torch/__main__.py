@@ -8,6 +8,8 @@
     python -m pregen_pde_tpu_torch evaluate --data d.npy --ckpt dir/best.pt
     python -m pregen_pde_tpu_torch train --model scot-B --data d.npy --ckpt dir/
     python -m pregen_pde_tpu_torch mix-sweep --model ffno --hard h.npy --easy e.npy
+    python -m pregen_pde_tpu_torch train --model cno --data d.npy --ckpt dir/
+    python -m pregen_pde_tpu_torch finetune --pretrained base.pt --data d.npy  # CNO
 
 ``generate``: the same flags as ``python -m pregen_pde_tpu generate`` for the
 spectral-NS workload, the four masked-geometry workloads (fpo_regular,
@@ -19,9 +21,8 @@ on a line of its own (and, for a masked workload, the sub-bucket and retry
 counts on another), then one JSON summary line.
 
 ``--model`` of ``evaluate``, ``train`` and ``mix-sweep`` is ``fno`` (the
-default, as in the JAX CLI), ``ffno``, ``scot`` or ``scot-T/S/B/L`` (scot =
-scot-T), each built from the dataset's channels; ``cno`` is a later slice
-and raises.
+default, as in the JAX CLI), ``ffno``, ``cno``, ``scot`` or ``scot-T/S/B/L``
+(scot = scot-T), each built from the dataset's channels and grid.
 
 ``evaluate``: the contract-npy form of ``python -m pregen_pde_tpu
 evaluate``: AR rollout patterns and the accumulation error on the test
@@ -44,6 +45,15 @@ the epochs restart).
 mix, a fresh model, ``fit`` with hard and easy val loaders, the best
 parameters, then the hard and easy test splits; one JSON line per α and
 the results.
+
+``finetune``: the contract-npy form of ``python -m pregen_pde_tpu
+finetune`` (``--model`` cno by default): the base built with
+``--base-in-size/-in-channels/-out-channels`` and ``--pretrained`` (an
+``.npz`` of the flax tree or a ``.pt``, as ``evaluate --ckpt`` takes) loaded
+into it, wrapped in 1×1-conv adapters where the dataset's channels differ,
+trained with the three fine-tuning tiers. Prints the launch line, the
+parameters per tier, one JSON record per epoch and ``{"best_mean_val_rel_%":
+...}``; ``--ckpt DIR`` writes the wrapper's best parameters as ``DIR/best.pt``.
 
 All take ``--device`` (default ``cuda``; raises when CUDA is asked for and
 absent; ``cpu`` runs the plain versions of the kernels). What the training
@@ -189,9 +199,9 @@ def _cmd_generate(args):
           flush=True)
 
 
-PORTED_MODELS = "fno, ffno, scot or scot-{T,S,B,L}"
-MODEL_HELP = ("fno (the default, as in the JAX CLI), ffno, scot or scot-T/S/B/L (scot = "
-              "scot-T); cno is a later slice")
+PORTED_MODELS = "fno, ffno, cno, scot or scot-{T,S,B,L}"
+MODEL_HELP = ("fno (the default, as in the JAX CLI), ffno, cno, scot or scot-T/S/B/L (scot = "
+              "scot-T)")
 
 
 def _scot_size(name: str) -> str:
@@ -205,23 +215,21 @@ def _scot_size(name: str) -> str:
 
 
 def _check_model(name: str) -> None:
-    """``--model`` as the JAX CLI's dispatch reads it; CNO (a later slice)
-    and unknown names raise before any data is read."""
-    if name == "cno":
-        raise SystemExit("model 'cno' is not ported yet: CNO and its ops are a later slice; "
-                         f"the port takes {PORTED_MODELS}")
+    """``--model`` as the JAX CLI's dispatch reads it; unknown names raise
+    before any data is read."""
     if name.startswith("scot"):
         _scot_size(name)
-    elif name not in ("fno", "ffno"):
+    elif name not in ("fno", "ffno", "cno"):
         raise SystemExit(f"unknown model {name!r}; the port takes {PORTED_MODELS}")
 
 
 def _make_model(name: str, in_size: int, in_channels: int = 7, out_channels: int = 3,
                 impl: str = "auto"):
     """The model from dataset-derived dims (``_make_model`` of the JAX CLI):
-    FNO and FFNO at the JAX defaults (their truncated-DFT route), or scOT.
-    ``impl`` sets scOT's two lowerings (``models/scot.py``): "auto" is the
-    kernels on a CUDA device."""
+    FNO and FFNO at the JAX defaults (their spectral convolutions through
+    ``torch.fft``), CNO at the JAX defaults (``expand_input`` when the grid
+    is not a multiple of 8), or scOT. ``impl`` sets scOT's two lowerings
+    (``models/scot.py``): "auto" is the kernels on a CUDA device."""
     _check_model(name)
     if impl != "auto" and not name.startswith("scot"):
         raise ValueError(f"impl {impl!r} applies to scOT only, not {name!r}")
@@ -233,6 +241,10 @@ def _make_model(name: str, in_size: int, in_channels: int = 7, out_channels: int
         from pregen_pde_tpu_torch.models.ffno import FFNO2d
 
         return FFNO2d(in_channels=in_channels, out_channels=out_channels)
+    if name == "cno":
+        from pregen_pde_tpu_torch.models.cno import CNO
+
+        return CNO(in_size, in_channels, out_dim=out_channels, expand_input=bool(in_size % 8))
     from pregen_pde_tpu_torch.models.scot import MODEL_SIZES, ScOT, ScOTConfig
 
     return ScOT(ScOTConfig(image_size=in_size, num_channels=in_channels,
@@ -320,15 +332,24 @@ def _reset_kernel_launches() -> None:
     window_attention.reset_launches()
 
 
-def _refuse_unported_train(args) -> None:
-    """What the training slice does not port yet raises, naming the slice."""
+def _refuse_benchmark_data(args, what: str) -> None:
+    """The benchmark datasets (ROADMAP.md, Queue 1, item 4.5) raise, naming
+    the slice; a contract .npy is needed."""
     import os
 
+    if (args.dataset or args.data_dir or args.num_trajectories is not None
+            or (args.data and ":" in args.data and not os.path.exists(args.data))):
+        raise SystemExit(f"{what} on the benchmark datasets (--dataset/--data-dir, --data "
+                         "<name>:<path>, --num-trajectories) is a later slice (ROADMAP.md, "
+                         "Queue 1, item 4.5); pass a contract .npy with --data")
+    if args.data is None:
+        raise SystemExit(f"{what} needs --data <contract.npy>")
+
+
+def _refuse_unported_train(args) -> None:
+    """What the training slice does not port yet raises, naming the slice."""
+    _refuse_benchmark_data(args, "training")
     later = [
-        (args.dataset or args.data_dir or args.num_trajectories is not None
-         or (args.data and ":" in args.data and not os.path.exists(args.data)),
-         "training on the benchmark datasets (--dataset/--data-dir, --data <name>:<path>, "
-         "--num-trajectories) is a later slice; pass a contract .npy with --data"),
         (args.ar_steps is not None or args.teacher_forcing or args.ar_final_label_only,
          "AR-rollout training (--ar-steps, --teacher-forcing, --ar-final-label-only; "
          "training/ar.py) is a later slice"),
@@ -342,8 +363,6 @@ def _refuse_unported_train(args) -> None:
     for bad, why in later:
         if bad:
             raise SystemExit(why)
-    if args.data is None:
-        raise SystemExit("train needs --data <contract.npy>")
     _check_model(args.model)
 
 
@@ -356,6 +375,11 @@ def _build_trainer(args, model, device, ckpt=None):
     lr_emb = getattr(args, "lr_embedding", None)
     lr_time = getattr(args, "lr_time_embedding", None)
     tiered = lr_emb is not None or lr_time is not None
+    if tiered and not args.model.startswith("scot"):
+        raise SystemExit(
+            "--lr-embedding/--lr-time-embedding mirror the scOT main-path param groups "
+            "(scOT/trainer.py:77-227); for CNO use `finetune` (its reference tiers are "
+            "FT-only, CNO_timeModule_CIN.py:983-994)")
     cfg = TrainerConfig(learning_rate=args.lr, epochs=args.epochs, batch_size=args.batch_size,
                         ckpt_dir=ckpt, warmup_frac=getattr(args, "warmup", 0.0) or 0.0,
                         lr_tiers=scot_main_tiers(args.lr, lr_emb, lr_time) if tiered else None)
@@ -450,6 +474,66 @@ def _cmd_mix_sweep(args):
         torch.cuda.synchronize(device)
     print(json.dumps({"kernel_launches": _kernel_launches()}), flush=True)
     print(json.dumps(results), flush=True)
+
+
+def _cmd_finetune(args):
+    import os
+
+    import torch
+
+    from pregen_pde_tpu_torch.models.convert import load_checkpoint
+    from pregen_pde_tpu_torch.training.datasets import BatchLoader, TimePairConfig, TimePairDataset
+    from pregen_pde_tpu_torch.training.finetune import (
+        DEFAULT_FT_TIERS,
+        AdapterWrapper,
+        finetune_tier_of,
+    )
+    from pregen_pde_tpu_torch.training.trainer import Trainer, TrainerConfig
+    from pregen_pde_tpu_torch.utils.device import resolve_device
+
+    _refuse_benchmark_data(args, "fine-tuning")
+    _check_model(args.model)
+    if os.path.isdir(args.pretrained):
+        raise SystemExit("orbax checkpoint directories are not read yet; export the params "
+                         "to an .npz (README) or pass a .pt state_dict")
+    device = resolve_device(args.device)
+    data = np.asarray(np.load(args.data, mmap_mode="r"))
+    t_steps = data.shape[1] - 1
+    cfg = TimePairConfig(max_num_time_steps=t_steps, allowed_transitions=[1],
+                         n_val=max(2, data.shape[0] // 10), n_test=max(2, data.shape[0] // 10))
+    train = TimePairDataset(data, cfg, "train")
+    val = TimePairDataset(data, cfg, "val", mean=train.mean, std=train.std)
+    # the pretrained base keeps its own geometry; the adapters bridge the
+    # target task's channel counts
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        base = _make_model(args.model, args.base_in_size, in_channels=args.base_in_channels,
+                           out_channels=args.base_out_channels)
+        model = AdapterWrapper(base, base_in_channels=args.base_in_channels,
+                               in_channels=train.in_channels,
+                               base_out_channels=args.base_out_channels,
+                               out_channels=train.out_channels)
+    try:
+        load_checkpoint(base, args.pretrained)  # into the base only, as JAX grafts params["base"]
+    except FileNotFoundError as e:
+        raise SystemExit(str(e)) from None
+    tcfg = TrainerConfig(learning_rate=DEFAULT_FT_TIERS["base"], epochs=args.epochs,
+                         batch_size=args.batch_size, ckpt_dir=args.ckpt,
+                         lr_tiers=DEFAULT_FT_TIERS)
+    trainer = Trainer(model, tcfg, tier_fn=finetune_tier_of, device=device)
+    trainer.init_state(steps_per_epoch=max(len(train) // args.batch_size, 1))
+    tiers = {t: 0 for t in DEFAULT_FT_TIERS}
+    for name, prm in model.named_parameters():
+        tiers[finetune_tier_of(name)] += prm.numel()
+    print(json.dumps({"tier_parameters": tiers}), flush=True)
+    _reset_kernel_launches()
+    result = trainer.fit(BatchLoader(train, args.batch_size, seed=0),
+                         val_loaders={"val": BatchLoader(val, args.batch_size, shuffle=False)},
+                         log_fn=lambda rec: print(json.dumps(rec), flush=True))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(json.dumps({"kernel_launches": _kernel_launches()}), flush=True)
+    print(json.dumps({"best_mean_val_rel_%": result["best_metric"]}), flush=True)
 
 
 def main(argv=None):
@@ -556,6 +640,31 @@ def main(argv=None):
     m.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises when CUDA is absent")
     m.set_defaults(fn=_cmd_mix_sweep)
+
+    ft = sub.add_parser("finetune")
+    ft.add_argument("--model", default="cno", help="base (pretrained) model family: " + MODEL_HELP)
+    ft.add_argument("--pretrained", required=True,
+                    help="the pretrained base: an .npz of the flax params flattened with '/', "
+                         "or a .pt state_dict")
+    ft.add_argument("--data", default=None, help="contract .npy path")
+    ft.add_argument("--dataset", default=None, help="not ported yet (raises)")
+    ft.add_argument("--data-dir", default=None, help="not ported yet (raises)")
+    ft.add_argument("--num-trajectories", type=int, default=None,
+                    help="benchmark datasets only; not ported yet (raises)")
+    ft.add_argument("--base-in-channels", type=int, default=7,
+                    help="input channels the pretrained base expects")
+    ft.add_argument("--base-in-size", type=int, default=128,
+                    help="grid size the pretrained base was built for")
+    ft.add_argument("--base-out-channels", type=int, default=3,
+                    help="output channels the pretrained base produces")
+    ft.add_argument("--epochs", type=int, default=10)
+    ft.add_argument("--batch-size", type=int, default=16)
+    ft.add_argument("--ckpt", default=None,
+                    help="directory; the best parameters are written to DIR/best.pt")
+    ft.add_argument("--seed", type=int, default=0)
+    ft.add_argument("--device", default="cuda",
+                    help="torch device; 'cuda' raises when CUDA is absent")
+    ft.set_defaults(fn=_cmd_finetune)
 
     args = p.parse_args(argv)
     args.fn(args)

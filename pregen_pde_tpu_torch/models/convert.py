@@ -1,19 +1,24 @@
-"""Checkpoints of the port's models (scOT, FNO, FFNO): a flax parameter
-tree → the port's state_dict, and the ``--ckpt`` loader of ``evaluate``.
+"""Checkpoints of the port's models (scOT, FNO, FFNO, CNO, and any of them
+wrapped in fine-tuning adapters): a flax parameter tree → the port's
+state_dict, and the ``--ckpt`` loader of ``evaluate`` (and ``--pretrained``
+of ``finetune``).
 
 The port's modules carry the flax names (``models/scot.py``, ``fno.py``,
-``ffno.py``), so a flax path maps to a state_dict key by joining with ``.``;
-only the layouts differ:
+``ffno.py``, ``cno.py``, ``training/finetune.py``), so a flax path maps to a
+state_dict key by joining with ``.``; only the layouts differ:
 
 - Dense ``kernel`` (in, out) → ``weight`` (out, in);
-- Conv ``kernel`` HWIO → ``weight`` OIHW (the depthwise (7, 7, 1, C) too);
+- Conv ``kernel`` HWIO → ``weight`` OIHW (the depthwise (7, 7, 1, C), CNO's
+  3×3 and the adapters' 1×1 too);
 - the patch recovery's ConvTranspose ``kernel`` (k, k, in, out), applied by
   flax without a flip → a ``ConvTranspose2d`` ``weight`` (in, out, k, k),
   flipped in both spatial axes;
 - every other leaf (``logit_scale``, ``layer_scale``, ``scale``/``bias`` of
   an unconditioned LayerNorm, ``mask_token``, ``pos_embed``, batch-norm
   affines, FNO's and FFNO's spectral weights, ``WNDense``'s ``v`` (in, out)
-  and ``g``) as it is.
+  and ``g``, CNO's GroupNorm/LayerNorm ``scale``/``bias``, activation
+  biases, ``bn_scale``/``bn_bias`` and the ViT's ``pos_embedding``) as it
+  is.
 
 The kernel and plain routes of scOT share this one state_dict, as the JAX
 routes share one tree; FNO's and FFNO's ``torch.fft`` route reads the tree
@@ -43,7 +48,7 @@ def flatten(params: dict, prefix: str = "") -> dict:
 
 
 def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
-    """A flax parameter tree of scOT, FNO or FFNO (nested, or flattened with
+    """A flax parameter tree of scOT, FNO, FFNO or CNO (nested, or flattened with
     ``/``-joined paths) of numpy arrays → the port's state_dict of the same
     model (float32)."""
     sd = {}

@@ -34,15 +34,22 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # flax nn.gelu is the tanh form
 
 
-def dense(in_features: int, out_features: int) -> nn.Linear:
-    """``nn.Linear`` under flax Dense's init: lecun_normal kernel (a normal
-    truncated at ±2σ, σ = 1/√fan_in corrected for the truncation), zero
-    bias."""
-    layer = nn.Linear(in_features, out_features)
-    std = 1.0 / math.sqrt(in_features) / 0.87962566103423978
+def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's lecun_normal in place: a normal truncated at ±2σ, σ =
+    1/√fan_in corrected for the truncation."""
+    std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
     with torch.no_grad():
-        nn.init.trunc_normal_(layer.weight, std=std, a=-2.0 * std, b=2.0 * std)
-        layer.bias.zero_()
+        return nn.init.trunc_normal_(weight, std=std, a=-2.0 * std, b=2.0 * std)
+
+
+def dense(in_features: int, out_features: int, bias: bool = True) -> nn.Linear:
+    """``nn.Linear`` under flax Dense's init: lecun_normal kernel, zero
+    bias."""
+    layer = nn.Linear(in_features, out_features, bias=bias)
+    lecun_normal_(layer.weight, in_features)
+    if bias:
+        with torch.no_grad():
+            layer.bias.zero_()
     return layer
 
 

@@ -722,3 +722,59 @@ def test_fno_ffno_card_forward_matches_cpu_f64(name):
         got = model.to(dev)(x.to(dev)).cpu()
     assert torch.isfinite(got).all()
     assert rel_l2(got, ref) <= 5e-6
+
+
+@pytest.mark.cuda
+def test_cno_card_forward_matches_cpu_f64():
+    """The CLI's CNO (3 layers, multiplier 32, 6 neck blocks) at 128², B =
+    2, weights from seed 0: the card's float32 forward (TF32 off) against
+    the same model in float64 on the CPU, relative L2 ≤ 1e-5 (2.4e-6
+    measured at B = 4 on an H100, ``chip_smoke.py`` phase 28)."""
+    _need_cuda()
+    import copy
+
+    from pregen_pde_tpu_torch.models.cno import CNO
+    from pregen_pde_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda")
+    torch.manual_seed(0)
+    model = CNO(128, 7, out_dim=3).eval()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 128, 128, 7)).astype(np.float32))
+    t = torch.tensor([0.2, 0.7])
+    with torch.no_grad():
+        ref = copy.deepcopy(model).double()(x.double(), t.double())
+        got = model.to(dev)(x.to(dev), t.to(dev)).cpu()
+    assert torch.isfinite(got).all()
+    assert rel_l2(got, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["same-size", "down", "up"])
+def test_filtered_lrelu_routes_agree_on_card(kind):
+    """CNO's three activation shapes at 128² (the lift's 64 channels, the
+    first downsampling's 32, the last upsampling's 16), B = 2: the
+    ``upfirdn2d`` routes "matmul", "conv" and "blocked" on the card against
+    each other and against the float64 CPU result, relative L2 ≤ 1e-5
+    (float32 roundoff; the routes agreed within 2e-6 at B = 16 on an H100,
+    ``chip_smoke.py`` phase 28)."""
+    _need_cuda()
+    from pregen_pde_tpu_torch.models.cno import CNO
+    from pregen_pde_tpu_torch.ops.filtered_lrelu import filtered_lrelu
+    from pregen_pde_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda")
+    torch.manual_seed(0)
+    model = CNO(128, 7, out_dim=3)
+    act = {"same-size": model.LiftProjectBlock_0.CNOBlock_0.AntiAliasedLReLu_0,
+           "down": model.CNOBlock_0.AntiAliasedLReLu_0,
+           "up": getattr(model, model.decoder[-1][2]).AntiAliasedLReLu_0}[kind]
+    x = torch.randn(2, act.bias.numel(), act.in_size, act.in_size,
+                    generator=torch.Generator().manual_seed(1))
+    kw = dict(up=act.up, down=act.down, padding=act.padding)
+    ref = filtered_lrelu(x.double(), act.fu, act.fd, **kw)
+    outs = {impl: filtered_lrelu(x.to(dev), act.fu, act.fd, impl=impl, **kw).cpu()
+            for impl in ("matmul", "conv", "blocked")}
+    for impl, out in outs.items():
+        assert out.shape == ref.shape and rel_l2(out, ref) <= 1e-5, impl
+        assert rel_l2(out, outs["matmul"]) <= 1e-5, impl

@@ -102,8 +102,8 @@ def test_cli_evaluate_cpu(tmp_path, capsys):
                 "--device", "cpu", *extra]
         with pytest.raises(SystemExit, match=match):
             main(argv)
-    with pytest.raises(SystemExit, match="not ported"):
-        main(["evaluate", "--model", "cno", "--data", str(data_path), "--ckpt", str(ckpt),
+    with pytest.raises(SystemExit, match="unknown model"):
+        main(["evaluate", "--model", "unet", "--data", str(data_path), "--ckpt", str(ckpt),
               "--device", "cpu"])
     if not torch.cuda.is_available():  # the default device is the card, never the CPU
         with pytest.raises(RuntimeError, match="cuda"):

@@ -188,8 +188,9 @@ def _cli_lines(capsys):
 def test_cli_fno_default_and_ffno(tmp_path, capsys):
     """``train`` with no ``--model`` trains FNO; ``evaluate`` with no
     ``--model`` reads its ``best.pt``; ``evaluate --model ffno`` reads an
-    ``.npz`` of a flax FFNO tree; ``mix-sweep --model ffno`` runs;
-    ``--model cno`` names the later slice. All on ``--device cpu``."""
+    ``.npz`` of a flax FFNO tree; ``mix-sweep --model ffno`` runs; an
+    unknown ``--model`` raises before any data is read. All on ``--device
+    cpu``."""
     hard, easy = tmp_path / "h.npy", tmp_path / "e.npy"
     np.save(hard, _contract(seed=5))
     np.save(easy, _contract(seed=6))
@@ -226,7 +227,7 @@ def test_cli_fno_default_and_ffno(tmp_path, capsys):
     for cmd in (["train", "--data", str(hard)], ["evaluate", "--data", str(hard), "--ckpt",
                                                  str(npz)],
                 ["mix-sweep", "--hard", str(hard), "--easy", str(easy)]):
-        with pytest.raises(SystemExit, match="later slice"):
-            main([*cmd, "--model", "cno", "--device", "cpu"])
+        with pytest.raises(SystemExit, match="unknown model"):
+            main([*cmd, "--model", "unet", "--device", "cpu"])
     with pytest.raises(ValueError, match="scOT only"):
         _make_model("fno", 16, impl="plain")

@@ -56,11 +56,15 @@ def test_port_sources_have_no_jax_package_imports():
 
 def test_scan_covers_every_slice_module():
     """The two checks above walk the package; the modules each slice adds
-    are among what they import and scan (this slice's: the validation
-    checks, FNO and FFNO)."""
+    are among what they import and scan (the validation checks, FNO and
+    FFNO; CNO, its ops, the Fourier features and fine-tuning)."""
     modules = set(_modules())
     for m in ("pregen_pde_tpu_torch.solvers.validation", "pregen_pde_tpu_torch.models.fno",
-              "pregen_pde_tpu_torch.models.ffno",
+              "pregen_pde_tpu_torch.models.ffno", "pregen_pde_tpu_torch.models.cno",
+              "pregen_pde_tpu_torch.models.fourier_features",
+              "pregen_pde_tpu_torch.training.finetune",
+              *(f"pregen_pde_tpu_torch.ops.{op}" for op in (
+                  "filter_design", "bias_act", "upfirdn2d", "filtered_lrelu", "conv2d_resample")),
               "pregen_pde_tpu_torch.models.convert", "pregen_pde_tpu_torch.__main__"):
         assert m in modules, m
     sources = {p.relative_to(ROOT).as_posix() for p in _sources()}

@@ -278,8 +278,8 @@ def test_cli_train_evaluate_mix_sweep_cpu(tmp_path, capsys):
                          (["--device-resident"], "device-resident"), (["--remat"], "remat")):
         with pytest.raises(SystemExit, match=match):
             main(base + extra)
-    with pytest.raises(SystemExit, match="not ported"):
-        main(["train", "--model", "cno", "--data", str(hard), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="unknown model"):
+        main(["train", "--model", "unet", "--data", str(hard), "--device", "cpu"])
     if not torch.cuda.is_available():  # the default device is the card, never the CPU
         with pytest.raises(RuntimeError, match="cuda"):
             main(base[:-2])
