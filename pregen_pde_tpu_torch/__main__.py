@@ -18,7 +18,9 @@ configs take only ``--resolution``; heat steps through the fused Heun
 kernel K5b on a CUDA device). ``--method`` applies to ns_spectral only;
 ``--max-steps-per-program`` is not ported. Prints the kernel launch counts
 on a line of its own (and, for a masked workload, the sub-bucket and retry
-counts on another), then one JSON summary line.
+counts on another), then one JSON summary line; on standard error, after the
+last batch, ``{"spans": ...}``: each ``pregen.*`` span's calls, seconds and
+bytes (``utils/trace.py``).
 
 ``--model`` of ``evaluate``, ``train`` and ``mix-sweep`` is ``fno`` (the
 default, as in the JAX CLI), ``ffno``, ``cno``, ``scot`` or ``scot-T/S/B/L``
@@ -64,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import numpy as np
 
@@ -135,6 +138,7 @@ def _cmd_generate(args):
     )
     from pregen_pde_tpu_torch.ops import stencil
     from pregen_pde_tpu_torch.solvers import ns_projection_cuda, spectral_ns_cuda
+    from pregen_pde_tpu_torch.utils import trace
     from pregen_pde_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -170,6 +174,7 @@ def _cmd_generate(args):
     spectral_ns_cuda.reset_launches()
     ns_projection_cuda.reset_launches()
     stencil.reset_launches()
+    trace.reset()
     stats = None
     if simple:
         _write_batches(args, writer, lambda take: _simple_batch(generator, args, take))
@@ -197,6 +202,7 @@ def _cmd_generate(args):
     print(json.dumps({"generated": args.n, "out": args.out, "device": str(device),
                       "workload": args.workload, "method": method}),
           flush=True)
+    print(json.dumps({"spans": trace.totals()}), file=sys.stderr, flush=True)
 
 
 PORTED_MODELS = "fno, ffno, cno, scot or scot-{T,S,B,L}"

@@ -44,6 +44,7 @@ from pregen_pde_tpu_torch.fields.geometry import (
 )
 from pregen_pde_tpu_torch.solvers import schedules
 from pregen_pde_tpu_torch.solvers.ns_projection import ProjectionConfig, ProjectionSolver
+from pregen_pde_tpu_torch.utils.trace import span
 
 def cfl_dt(cfg: "MaskedNSConfig", u_max: float, safety: float = 0.5,
            speedup: float | None = None) -> float:
@@ -204,25 +205,26 @@ def generate_masked_ns_batch_from_inputs(z_re: torch.Tensor, masks: torch.Tensor
     stats = new_stats() if stats is None else stats
     dev = masks.device
     n_traj = masks.shape[0]
-    re = schedules.sample_reynolds(z=z_re.to(torch.float64), mean=cfg.re_mean,
-                                   std=cfg.re_std)
-    re_np = re.cpu().numpy()
-    u_max_np = re_np * cfg.viscosity / cfg.length  # Umax = Re·ν/L
-    end_t_np = schedules.end_time_from_re(re).cpu().numpy() * cfg.time_scale
-    re_norm_np = schedules.normalize_re(re).cpu().numpy()
+    with span("pregen.masked.inputs"):
+        re = schedules.sample_reynolds(z=z_re.to(torch.float64), mean=cfg.re_mean,
+                                       std=cfg.re_std)
+        re_np = re.cpu().numpy()
+        u_max_np = re_np * cfg.viscosity / cfg.length  # Umax = Re·ν/L
+        end_t_np = schedules.end_time_from_re(re).cpu().numpy() * cfg.time_scale
+        re_norm_np = schedules.normalize_re(re).cpu().numpy()
 
-    masks = masks.to(torch.float32)
-    masks_np = masks.cpu().numpy()
-    sdfs_np = sdf_from_mask(masks).cpu().numpy()
+        masks = masks.to(torch.float32)
+        masks_np = masks.cpu().numpy()
+        sdfs_np = sdf_from_mask(masks).cpu().numpy()
 
     res = cfg.resolution
-    out = np.empty((n_traj, cfg.n_snapshots + 1, res, res, 6), np.dtype(storage_dtype))
     # t_end is pinned: traj always gets explicit inner steps and dt
     solver = _solver_for(cfg, 1.0, 1.0)
     traj = _batched_traj_for(solver, dev)
     store = getattr(torch, np.dtype(storage_dtype).name)
 
-    pr = plan_rows(u_max_np, end_t_np, cfg)
+    with span("pregen.masked.plan"):
+        pr = plan_rows(u_max_np, end_t_np, cfg)
     plan, rows, sub, horizon = pr["plan"], pr["rows"], pr["sub"], pr["horizon"]
     stats["sub_buckets"] += len(plan)
 
@@ -232,14 +234,18 @@ def generate_masked_ns_batch_from_inputs(z_re: torch.Tensor, masks: torch.Tensor
         inner = inner_steps_for(horizon[sel], dt_sel, cfg.n_snapshots)
         order = np.argsort(-inner, kind="stable")
         idx = rows[sel][order]
-        frames = traj(masks[torch.as_tensor(idx, device=dev)],
-                      torch.as_tensor(u_max_np[idx], dtype=torch.float32, device=dev),
-                      torch.as_tensor(inner[order]), torch.as_tensor(dt_sel[order]))
+        with span("pregen.masked.k2"):
+            frames = traj(masks[torch.as_tensor(idx, device=dev)],
+                          torch.as_tensor(u_max_np[idx], dtype=torch.float32, device=dev),
+                          torch.as_tensor(inner[order]), torch.as_tensor(dt_sel[order]))
         stats["calls"] += 1
-        if frames.dtype != store:
-            frames = frames.to(store)  # cast on the device before the fetch
-        got = np.empty((len(sel), *frames.shape[1:]), np.dtype(storage_dtype))
-        got[order] = frames.cpu().numpy()
+        with span("pregen.masked.fetch", frames.numel() * store.itemsize):
+            if frames.dtype != store:
+                frames = frames.to(store)  # cast on the device before the fetch
+            fetched = frames.cpu().numpy()
+        with span("pregen.masked.reorder"):
+            got = np.empty_like(fetched)
+            got[order] = fetched
         return got
 
     frames = _run(np.arange(len(rows)), pr["dt"])
@@ -248,7 +254,8 @@ def generate_masked_ns_batch_from_inputs(z_re: torch.Tensor, masks: torch.Tensor
     # count stays; a retry counts once per sub-bucket with a bad row
     dt_now = pr["dt"].copy()
     for attempt in range(cfg.nonfinite_retries):
-        finite = np.isfinite(frames).all(axis=tuple(range(1, frames.ndim)))
+        with span("pregen.masked.finite"):
+            finite = np.isfinite(frames).all(axis=tuple(range(1, frames.ndim)))
         if finite.all():
             break
         bad = np.nonzero(~finite)[0]
@@ -258,13 +265,19 @@ def generate_masked_ns_batch_from_inputs(z_re: torch.Tensor, masks: torch.Tensor
                 "masked_ns horizon %s: %d/%d non-finite, retrying at dt=%g (attempt %d)",
                 plan[k][1], int((sub[bad] == k).sum()), len(plan[k][0]),
                 dt_now[bad][sub[bad] == k][0], attempt + 1)
-        frames[bad] = _run(bad, dt_now[bad])
+        with span("pregen.masked.retry"):
+            frames[bad] = _run(bad, dt_now[bad])
         stats["retries"] += len(np.unique(sub[bad]))
         stats["retried_trajectories"] += len(bad)
-    out[rows, :, :, :, 0:3] = frames
-    out[:, :, :, :, 3] = re_norm_np[:, None, None, None]
-    out[:, :, :, :, 4] = masks_np[:, None, :, :]
-    out[:, :, :, :, 5] = sdfs_np[:, None, :, :]
+    with span("pregen.masked.assemble"):
+        # the fresh array's pages are first touched by these strided writes
+        with span("pregen.masked.assemble.frames"):
+            out = np.empty((n_traj, cfg.n_snapshots + 1, res, res, 6), np.dtype(storage_dtype))
+            out[rows, :, :, :, 0:3] = frames
+        with span("pregen.masked.assemble.channels"):
+            out[:, :, :, :, 3] = re_norm_np[:, None, None, None]
+            out[:, :, :, :, 4] = masks_np[:, None, :, :]
+            out[:, :, :, :, 5] = sdfs_np[:, None, :, :]
     return out
 
 

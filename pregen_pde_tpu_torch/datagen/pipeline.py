@@ -32,6 +32,7 @@ from pregen_pde_tpu_torch.fields.geometry import no_hole_mask_and_sdf
 from pregen_pde_tpu_torch.fields.grf import draw_grf_noise, grf_filter
 from pregen_pde_tpu_torch.solvers import schedules
 from pregen_pde_tpu_torch.solvers.spectral_ns import CUDA_METHODS, NSVorticitySolver
+from pregen_pde_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,8 +147,9 @@ def generate_ns_batch_from_inputs(xi: torch.Tensor, z_re: torch.Tensor,
     n = cfg.resolution
     n_traj = xi.shape[0]
     method = resolve_method(gen_cfg.method, n, dev)
-    w0_all = grf_filter(xi.to(torch.float32), solver.grid, gen_cfg.grf_alpha,
-                        gen_cfg.grf_tau, gen_cfg.grf_sigma)
+    with span("pregen.ns.grf"):
+        w0_all = grf_filter(xi.to(torch.float32), solver.grid, gen_cfg.grf_alpha,
+                            gen_cfg.grf_tau, gen_cfg.grf_sigma)
     mask, sdf = no_hole_mask_and_sdf(n, str(dev))
     if method in CUDA_METHODS:
         from pregen_pde_tpu_torch.solvers.spectral_ns_cuda import build_batched_traj
@@ -156,16 +158,25 @@ def generate_ns_batch_from_inputs(xi: torch.Tensor, z_re: torch.Tensor,
         traj = build_batched_traj(solver, precision=CUDA_METHODS[method],
                                   output="fields")
 
-        def bucket(w0, nu, re_norm, inner):
-            return _pack_contract_uvp(traj(w0, nu, inner), re_norm, mask, sdf)
+        def pack(uvp, re_norm):
+            return _pack_contract_uvp(uvp, re_norm, mask, sdf)
     else:
         traj = solver.make_trajectory_fn_nu(method)
 
-        def bucket(w0, nu, re_norm, inner):
-            return _pack_contract(traj(w0, nu, inner), solver, re_norm, mask, sdf)
+        def pack(w, re_norm):
+            return _pack_contract(w, solver, re_norm, mask, sdf)
+
+    def bucket(w0, nu, re_norm, inner):
+        with span("pregen.ns.k1"):  # on a card it only enqueues K1
+            got = traj(w0, nu, inner)
+        with span("pregen.ns.pack"):
+            return pack(got, re_norm)
+
+    itemsize = np.dtype(gen_cfg.storage_dtype).itemsize
 
     def fetch(arr):
-        return _to_storage(arr, gen_cfg).cpu().numpy()
+        with span("pregen.ns.fetch", arr.numel() * itemsize):
+            return _to_storage(arr, gen_cfg).cpu().numpy()
 
     if not gen_cfg.vary_difficulty:
         nu = torch.full((n_traj,), cfg.viscosity, dtype=torch.float32, device=dev)

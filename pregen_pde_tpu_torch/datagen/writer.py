@@ -16,6 +16,8 @@ from pathlib import Path
 
 import numpy as np
 
+from pregen_pde_tpu_torch.utils.trace import span
+
 
 class ShardWriter:
     """Writes (B, T, H, W, C) batches as numbered shards ('npy' or 'h5')."""
@@ -94,7 +96,8 @@ class ShardWriter:
     def write_batch(self, arr: np.ndarray):
         if self._error is not None:
             raise RuntimeError("writer thread failed") from self._error
-        self._q.put((self._idx, np.ascontiguousarray(arr)))
+        with span("pregen.write", arr.nbytes):  # the wait for a free queue slot
+            self._q.put((self._idx, np.ascontiguousarray(arr)))
         self._idx += 1
 
     def close(self, metadata: dict | None = None):

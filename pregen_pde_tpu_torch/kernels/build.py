@@ -16,8 +16,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
+
+from pregen_pde_tpu_torch.utils.trace import span
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -26,7 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
-# seconds the last build of each library took (0.0 when loaded from cache)
+# seconds the last build of each library took (0.0 when loaded from cache):
+# the elapsed time of its ``pregen.kernel.build`` span
 build_seconds: dict[str, float] = {}
 
 
@@ -68,15 +70,15 @@ def build(name: str, build_dir: Path = BUILD_DIR, defines: tuple = ()) -> Path:
     tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with span("pregen.kernel.build") as built:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed building {name!r} (rc {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, so_path)  # atomic against concurrent builds
-    build_seconds[name] = time.perf_counter() - t0
+    build_seconds[name] = built.seconds
     return so_path
 
 
@@ -85,7 +87,8 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     key = name if not defines else f"{name}[{','.join(defines)}]"
     lib = _loaded.get(key)
     if lib is None:
-        lib = _loaded[key] = ctypes.CDLL(str(build(name, defines=defines)))
+        with span("pregen.kernel.load"):
+            lib = _loaded[key] = ctypes.CDLL(str(build(name, defines=defines)))
     return lib
 
 

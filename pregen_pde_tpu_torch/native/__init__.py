@@ -18,6 +18,8 @@ from pathlib import Path
 
 import numpy as np
 
+from pregen_pde_tpu_torch.utils.trace import span
+
 _SRC = Path(__file__).parent / "shardio.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build" / "native"
 _LIB = None
@@ -84,9 +86,10 @@ class NativeShardWriter:
             raise TypeError(f"native shard writer is float32-only, got {arr.dtype}; "
                             "use ShardWriter(backend='python', dtype=...) for other dtypes")
         arr = np.ascontiguousarray(arr)
-        rc = self._lib.shard_writer_write(
-            self._h, arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            (ctypes.c_int64 * arr.ndim)(*arr.shape), arr.ndim)
+        with span("pregen.write", arr.nbytes):
+            rc = self._lib.shard_writer_write(
+                self._h, arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                (ctypes.c_int64 * arr.ndim)(*arr.shape), arr.ndim)
         if rc < 0:
             raise RuntimeError(f"native shard write failed: {rc}")
         self._n_shards += 1

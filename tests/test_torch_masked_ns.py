@@ -146,6 +146,40 @@ def test_nonfinite_bucket_retry(monkeypatch):
     assert inner1[0] == max(int(round(horizon / dt1[0])) // cfg.n_snapshots, 1)
 
 
+def test_nonfinite_retry_span_holds_its_attempt(monkeypatch):
+    """The retry of test_nonfinite_bucket_retry under a profiler: one
+    ``pregen.masked.retry`` span holding the attempt's own K2 call, fetch
+    and reorder; the fetches' bytes are the frames' bytes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pregen_pde_tpu_torch.utils import trace
+
+    calls = []
+    monkeypatch.setattr(tm, "_batched_traj_for", _fake_traj_factory(calls, True))
+    cfg = tm.MaskedNSConfig(pipeline="fpo_regular", resolution=16, n_snapshots=2,
+                            time_scale=1e-4, re_std=0.0)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = tm.generate_masked_ns_batch(torch.Generator().manual_seed(0), cfg, 4)
+    ev = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.name.startswith("pregen.masked.")), key=lambda r: (r[1], -r[2]))
+    names = [r[0] for r in ev]
+    assert names == ["pregen.masked.inputs", "pregen.masked.plan", "pregen.masked.k2",
+                     "pregen.masked.fetch", "pregen.masked.reorder", "pregen.masked.finite",
+                     "pregen.masked.retry", "pregen.masked.k2", "pregen.masked.fetch",
+                     "pregen.masked.reorder", "pregen.masked.finite",
+                     "pregen.masked.assemble",
+                     "pregen.masked.assemble.frames", "pregen.masked.assemble.channels"]
+    retry = ev[6]
+    inside = [r[0] for r in ev if retry[1] <= r[1] and r[2] <= retry[2] and r is not retry]
+    assert inside == ["pregen.masked.k2", "pregen.masked.fetch", "pregen.masked.reorder"]
+    frames = out[..., :3]
+    tot = trace.totals()
+    # the first pass's four rows and the retried one
+    assert tot["pregen.masked.fetch"]["bytes"] == frames.nbytes + frames[:1].nbytes
+    assert tot["pregen.masked.fetch"]["calls"] == len(calls) == 2
+
+
 def test_cli_masked_generate_writes_readable_shards(tmp_path, capsys):
     from pregen_pde_tpu_torch.__main__ import main
 
