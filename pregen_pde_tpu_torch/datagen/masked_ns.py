@@ -12,7 +12,8 @@ Per batch: Re ~ clip(N(5000, 2000²)) → Umax = Re·ν/L → the band-law horiz
 sub-buckets by the power-of-two level of its members' own CFL dt; each
 trajectory runs at the smallest dt of its sub-bucket, and the whole batch
 runs as ONE call with per-trajectory dt and inner steps, longest trajectory
-first → the storage cast on the device → the dt/2 retry of only the
+first → the storage cast on the device and the fetch into a reused
+page-locked host buffer (``datagen/fetch.py``) → the dt/2 retry of only the
 non-finite rows, all of them in one call per attempt
 (``nonfinite_retries`` times, so the count stays exact) → the (N, T, H, W,
 6) contract ``[u, v, p, Re_norm, mask, SDF]``. The plan and each row's dt
@@ -35,6 +36,7 @@ import logging
 import numpy as np
 import torch
 
+from pregen_pde_tpu_torch.datagen.fetch import to_host
 from pregen_pde_tpu_torch.fields.geometry import (
     disk_mask,
     sample_multi_holes,
@@ -242,7 +244,7 @@ def generate_masked_ns_batch_from_inputs(z_re: torch.Tensor, masks: torch.Tensor
         with span("pregen.masked.fetch", frames.numel() * store.itemsize):
             if frames.dtype != store:
                 frames = frames.to(store)  # cast on the device before the fetch
-            fetched = frames.cpu().numpy()
+            fetched = to_host(frames)
         with span("pregen.masked.reorder"):
             got = np.empty_like(fetched)
             got[order] = fetched

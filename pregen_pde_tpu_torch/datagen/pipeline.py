@@ -15,8 +15,9 @@ computed.
 The random draws are split from the compute: ``draw_batch_inputs`` makes the
 GRF white noise ξ and the Re normal z from an explicit ``torch.Generator``,
 and ``generate_ns_batch_from_inputs(xi, z_re, ...)`` is a pure function of
-them, so a test can feed it JAX's own draws. The host fetch is synchronous
-(the JAX path's depth-2 solve/fetch overlap is later work).
+them, so a test can feed it JAX's own draws. The host fetch is synchronous,
+into a reused page-locked buffer (``datagen/fetch.py``); the JAX path's
+depth-2 solve/fetch overlap is later work.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from pregen_pde_tpu_torch.core import NSVorticityConfig
+from pregen_pde_tpu_torch.datagen.fetch import to_host
 from pregen_pde_tpu_torch.fields.geometry import no_hole_mask_and_sdf
 from pregen_pde_tpu_torch.fields.grf import draw_grf_noise, grf_filter
 from pregen_pde_tpu_torch.solvers import schedules
@@ -176,7 +178,7 @@ def generate_ns_batch_from_inputs(xi: torch.Tensor, z_re: torch.Tensor,
 
     def fetch(arr):
         with span("pregen.ns.fetch", arr.numel() * itemsize):
-            return _to_storage(arr, gen_cfg).cpu().numpy()
+            return to_host(_to_storage(arr, gen_cfg))
 
     if not gen_cfg.vary_difficulty:
         nu = torch.full((n_traj,), cfg.viscosity, dtype=torch.float32, device=dev)

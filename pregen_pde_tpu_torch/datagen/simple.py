@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from pregen_pde_tpu_torch.core import BurgersConfig, SpectralGrid1D, SpectralGrid2D
+from pregen_pde_tpu_torch.datagen.fetch import to_host
 from pregen_pde_tpu_torch.fields.grf import (
     draw_grf_1d_noise,
     draw_grf_noise,
@@ -34,11 +35,12 @@ from pregen_pde_tpu_torch.solvers.heat import HeatConfig, HeatSolver
 
 
 def _fetch(arr: torch.Tensor, storage_dtype: str) -> np.ndarray:
-    """Cast to the storage dtype on the device, then copy to the host."""
+    """Cast to the storage dtype on the device, then copy to the host
+    (through the page-locked pool for a CUDA tensor)."""
     store = getattr(torch, np.dtype(storage_dtype).name)
     if arr.dtype != store:
         arr = arr.to(store)
-    return arr.cpu().numpy()
+    return to_host(arr)
 
 
 def generate_burgers_batch_from_noise(xi: torch.Tensor, cfg: BurgersConfig,

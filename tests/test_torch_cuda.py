@@ -778,3 +778,99 @@ def test_filtered_lrelu_routes_agree_on_card(kind):
     for impl, out in outs.items():
         assert out.shape == ref.shape and rel_l2(out, ref) <= 1e-5, impl
         assert rel_l2(out, outs["matmul"]) <= 1e-5, impl
+
+
+# -- the generators' fetch into reused page-locked buffers (datagen/fetch.py)
+
+
+def _checked_to_host(monkeypatch, module):
+    """Wrap ``module.to_host`` so each fetch is held against ``.cpu().numpy()``
+    of the same device tensor; → the list of fetched arrays."""
+    from pregen_pde_tpu_torch.datagen import fetch
+
+    seen = []
+
+    def to_host(t):
+        got = fetch.to_host(t)
+        assert t.is_cuda and got.tobytes() == t.cpu().numpy().tobytes()
+        seen.append(got.nbytes)
+        return got
+
+    monkeypatch.setattr(module, "to_host", to_host)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage_dtype", ["float32", "float16"])
+def test_entries_fetch_byte_equal_to_a_pageable_copy(monkeypatch, storage_dtype):
+    """The spectral and masked batch entries on the card: each fetch through
+    the pool is byte-equal to ``.cpu().numpy()`` of the same tensor, and the
+    entries' outputs hold it."""
+    _need_cuda()
+    from pregen_pde_tpu_torch.datagen import masked_ns, pipeline
+
+    seen = _checked_to_host(monkeypatch, pipeline)
+    cfg = pipeline.GenerationConfig(solver=NSVorticityConfig(resolution=128, n_snapshots=3),
+                                    batch_size=4, time_scale=5e-6,
+                                    storage_dtype=storage_dtype)
+    xi, z_re = pipeline.draw_batch_inputs(torch.Generator(device="cuda").manual_seed(5), cfg)
+    out = pipeline.generate_ns_batch_from_inputs(xi, z_re, cfg)
+    assert seen == [out.nbytes] and out.dtype == np.dtype(storage_dtype)
+    assert np.isfinite(out).all()
+
+    seen = _checked_to_host(monkeypatch, masked_ns)
+    mcfg = MaskedNSConfig(pipeline="fpo_multi_hole", resolution=128, n_snapshots=3,
+                          time_scale=2e-3)
+    z_re, masks = masked_ns.draw_masked_inputs(torch.Generator(device="cuda").manual_seed(5),
+                                               mcfg, 4)
+    out = masked_ns.generate_masked_ns_batch_from_inputs(z_re, masks, mcfg, storage_dtype)
+    assert seen[0] == out[..., :3].nbytes and np.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_fetch_right_after_a_long_k1_call_returns_the_finished_array():
+    """The copy is enqueued behind the kernel and waited for: a fresh pool's
+    zeroed buffer never shows through."""
+    _need_cuda()
+    from pregen_pde_tpu_torch.datagen import fetch
+
+    cfg = NSVorticityConfig(resolution=256, viscosity=1e-3, dt=1e-4, n_snapshots=4,
+                            include_initial=True, forcing="fno")
+    w0 = to_torch(np.random.default_rng(6).normal(size=(8, 256, 256)), "cuda", torch.float32)
+    traj = snc.build_batched_traj(NSVorticitySolver(cfg), output="fields")
+    traj(w0[:1], 1e-3, 1)  # built and loaded before the timed call
+    torch.cuda.synchronize()
+    pool = fetch.HostPool(1 << 30)
+    out = traj(w0, 1e-3, 2000)  # ~0.2 s of K1, enqueued
+    got = pool.fetch(out)
+    torch.cuda.synchronize()
+    assert got.tobytes() == out.cpu().numpy().tobytes()
+    assert np.isfinite(got).all() and (got[:, -1] != 0).any(axis=(1, 2, 3)).all()
+    assert pool.pinned_bytes == got.nbytes
+
+
+@pytest.mark.cuda
+def test_three_spectral_batches_pin_once(monkeypatch):
+    """One page-locked buffer serves batch after batch of one size; nothing
+    takes the pageable path."""
+    _need_cuda()
+    from pregen_pde_tpu_torch.datagen import fetch, pipeline
+    from pregen_pde_tpu_torch.utils import trace
+
+    monkeypatch.setattr(fetch, "_pool", None)  # a fresh pool
+    cfg = pipeline.GenerationConfig(solver=NSVorticityConfig(resolution=128, n_snapshots=3),
+                                    batch_size=8, time_scale=5e-6)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    trace.reset()
+    addrs = set()
+    for _ in range(3):
+        out = pipeline.generate_ns_batch(gen, cfg)
+        assert out.shape == (8, 4, 128, 128, 6) and np.isfinite(out).all()
+        addrs.add(out.ctypes.data)
+        del out
+    tot = trace.totals()
+    assert tot["pregen.ns.fetch"]["calls"] == 3
+    assert tot["pregen.fetch.pin"]["calls"] == 1
+    assert tot["pregen.fetch.pin"]["bytes"] == 8 * 4 * 128 * 128 * 6 * 4
+    assert "pregen.fetch.pageable" not in tot
+    assert len(addrs) == 1 and fetch.pool().pinned_bytes == 8 * 4 * 128 * 128 * 6 * 4
