@@ -30,7 +30,8 @@ def test_no_source_of_the_benchmark_imports_jax():
     for path in BENCH.rglob("*.py"):
         assert not _top_level_imports(path) & FORBIDDEN, path
     reference = _top_level_imports(BENCH / "reference" / "spectral.py")
-    for path in (BENCH / "reference").glob("*.py"):
+    for path in [*(BENCH / "reference").glob("*.py"),
+                 *(BENCH / "tests" / "fixtures" / "reference").glob("*.py")]:
         assert "pregen_pde_tpu_torch" not in _top_level_imports(path), path
     assert reference <= {"__future__", "numpy", "torch"}
 
@@ -43,12 +44,12 @@ import sys
 sys.path.insert(0, {str(ROOT)!r}); sys.path.insert(0, {str(BENCH / 'tests')!r})
 from pathlib import Path
 import torch
-from bench_fixture import fixture_root
+from bench_fixture import cpu_cell, fixture_root
 from portbench import run, limits
 from portbench.reference import geometry, plan, projection, schedules, spectral
 root = fixture_root(Path({str(tmp_path)!r}))
-for cell in ("tiny_spectral.a", "tiny_masked.a"):
-    run.run_cell(run.load_cell(cell, root), 5, 0.0, False, torch.device("cpu"))
+for cell in ("tiny_spectral.a", "tiny_masked.a", "tiny_train.a"):
+    run.run_cell(cpu_cell(cell, root), 5, 0.0, False, torch.device("cpu"))
 print("loaded:", ",".join(run.forbidden_modules()))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import re
 
 import pytest
@@ -61,20 +62,67 @@ def test_configs_resolve_and_keep_their_widths():
         assert any(w["config"] == c["name"] for w in MANIFEST["workloads"])
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_cell_resolves(cell):
-    spec = run.load_cell(cell)
+# drivers whose cells keep the generators' contract; any other driver's cell
+# meets the general one
+GENERATORS = ("spectral", "masked")
+
+
+def cell_contract(spec: dict) -> None:
+    """Assert the contract of a cell as ``run.load_cell`` gives it. Every
+    cell: its keys, its name, one chip, ``setup_s`` and ``traj_per_s``, a
+    per-layer metric, a reader file for each metric. A generator's cell:
+    the CLI's batch of 128 and its three limits, ``aux_gap`` and
+    ``lost_rows`` exact. Any other cell: a positive whole batch, 1 to 4
+    finite limits of at least 0, and ``peak_mem_gib`` too."""
     w = spec["cell"]
     assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
     assert w["name"] == f"{w['config']}.{w['traffic']}"
-    assert {m["name"] for m in spec["end_to_end"]} >= {"setup_s", "traj_per_s"}
+    e2e = {m["name"] for m in spec["end_to_end"]}
+    assert e2e >= {"setup_s", "traj_per_s"}
     assert spec["per_layer"], "every cell reports a per-layer metric"
     for m in spec["end_to_end"] + spec["per_layer"]:
-        assert (BENCH / "metrics" / f"{m['name']}.py").is_file()
+        assert (spec["folder"] / "metrics" / f"{m['name']}.py").is_file()
     t = spec["traffic"]
-    assert t["batch_size"] == 128
-    assert len(t["limits"]) == 3
-    assert t["limits"]["aux_gap"] == 0.0 and t["limits"]["lost_rows"] == 0.0
+    if spec["driver"] in GENERATORS:
+        assert t["batch_size"] == 128
+        assert len(t["limits"]) == 3
+        assert t["limits"]["aux_gap"] == 0.0 and t["limits"]["lost_rows"] == 0.0
+        return
+    B = t["batch_size"]
+    assert isinstance(B, int) and not isinstance(B, bool) and B > 0
+    assert 1 <= len(t["limits"]) <= 4
+    for v in t["limits"].values():
+        assert isinstance(v, float) and math.isfinite(v) and v >= 0.0
+    assert "peak_mem_gib" in e2e
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_resolves(cell):
+    cell_contract(run.load_cell(cell))
+
+
+def test_a_fixture_training_cell_passes_the_general_contract(tmp_path):
+    """``tiny_train.a``, a cell of new files only, meets the general
+    contract, also at batch 16 with its two limits; a generator's cell at
+    batch 16 still fails its own."""
+    root = fixture_root(tmp_path)
+    spec = run.load_cell("tiny_train.a", root)
+    assert spec["driver"] not in GENERATORS and len(spec["traffic"]["limits"]) == 2
+    cell_contract(spec)
+    cell_contract({**spec, "traffic": {**spec["traffic"], "batch_size": 16}})
+    limits = spec["traffic"]["limits"]
+    for traffic in ({"batch_size": 0}, {"batch_size": 16.0},
+                    {"limits": {**limits, "loss_gap": float("nan")}},
+                    {"limits": {**limits, **{f"gap{i}": 1.0 for i in range(3)}}}):
+        with pytest.raises(AssertionError):
+            cell_contract({**spec, "traffic": {**spec["traffic"], **traffic}})
+    with pytest.raises(AssertionError):
+        cell_contract({**spec, "end_to_end": [m for m in spec["end_to_end"]
+                                              if m["name"] != "peak_mem_gib"]})
+    masked = run.load_cell("tiny_masked.a", root)
+    masked["traffic"] = {**masked["traffic"], "batch_size": 16}
+    with pytest.raises(AssertionError):
+        cell_contract(masked)
 
 
 def test_metric_entries():
