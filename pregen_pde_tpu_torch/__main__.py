@@ -38,7 +38,9 @@ the time-pair split and transition grammar, the trainer with the JAX
 defaults (and the scOT learning-rate tiers with ``--lr-embedding`` /
 ``--lr-time-embedding``), the loader with seed 0, ``fit`` with a val
 loader. Prints the K3/K4 forward and backward launch counts, then one JSON
-record per epoch and ``{"best_mean_val_rel_%": ...}``. ``--ckpt DIR`` writes
+record per epoch and ``{"best_mean_val_rel_%": ...}``; on standard error
+at the end, as ``generate`` does, ``{"spans": ...}`` (the ``pregen.train.*``
+spans of the steps and the loader among them). ``--ckpt DIR`` writes
 the best parameters as ``DIR/best.pt`` (a state_dict that ``evaluate
 --ckpt`` reads); ``--resume`` loads it before training (parameters only,
 the epochs restart).
@@ -406,6 +408,7 @@ def _cmd_train(args):
     import torch
 
     from pregen_pde_tpu_torch.training.datasets import BatchLoader, TimePairConfig, TimePairDataset
+    from pregen_pde_tpu_torch.utils import trace
     from pregen_pde_tpu_torch.utils.device import resolve_device
 
     _refuse_unported_train(args)
@@ -430,6 +433,7 @@ def _cmd_train(args):
         print(json.dumps({"resumed_from": args.ckpt,
                           "ckpt_file": str(trainer.restore_latest())}), flush=True)
     _reset_kernel_launches()
+    trace.reset()
     records = []
     result = trainer.fit(loader, val_loaders={"val": BatchLoader(val, args.batch_size,
                                                                   shuffle=False)},
@@ -440,6 +444,7 @@ def _cmd_train(args):
     for rec in records:
         print(json.dumps(rec), flush=True)
     print(json.dumps({"best_mean_val_rel_%": result["best_metric"]}), flush=True)
+    print(json.dumps({"spans": trace.totals()}), file=sys.stderr, flush=True)
 
 
 def _cmd_mix_sweep(args):

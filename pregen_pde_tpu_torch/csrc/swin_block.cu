@@ -33,8 +33,9 @@
 //   1. qkv = x [Wq; Wk; Wv]^T + [bq; 0; bv] (the three weights read in place);
 //   2. the attention, one block per (window, head, 128 queries): k
 //      normalised into shared memory, q normalised and scaled in registers,
-//      S = q k^T and P v by 3xTF32 mma, the bias added and an online
-//      softmax in registers; writes o and, when saving, each row's
+//      the window's mean rows of k^ and v taken out (see the attention's
+//      section), S = q k^T and P v by 3xTF32 mma, the bias added and an
+//      online softmax in registers; writes o and, when saving, each row's
 //      log-sum-exp;
 //   3. a = o Wp^T + bp with CondLN1, the per-sample affine and the drop-path
 //      residual in the epilogue: a cluster of 1-4 blocks owns 64 whole
@@ -579,6 +580,21 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(const Gemm4 q) {
 // tile of P (or ds) in shared memory to turn the accumulator layout into
 // the A layout. A chunk's products go into fresh accumulators (S, dP) or a
 // zeroed chunk sum added to the running one in float32 (o, dq, dk, dv).
+//
+// The products take the window's mean rows k^bar of k^ and vbar of v out
+// first. Where a window's tokens are alike (a uniform stretch of flow) k^
+// and v are their mean plus a little, and the backward's sums cancel:
+// dP - D, the rows of ds (which sum to nought) against k^, and dscale. A
+// 3xTF32 operand keeps about 21 bits of its value, so on the mean's scale
+// those sums came out 10-25x plain float32's error (dq, dk, dscale on
+// scOT-B's training step). Taken out, the products see only the part that
+// differs: the forward's logits are c q^.(k^ - k^bar), a shift by the row
+// constant c q^.k^bar that the softmax does not see (the saved
+// log-sum-exps are of these logits), and o = vbar + P (v - vbar). The
+// backward takes dP - D = do.(v - vbar) - do.(o - vbar), dq = c ds
+// (k^ - k^bar) and dscale = ds q^.(k^ - k^bar), each equal to the
+// uncentred form because a row of ds sums to nought. The means are summed
+// in a fixed order from the same rows in every block of a window.
 
 constexpr int kAttnWarps = 8;
 
@@ -599,6 +615,34 @@ __device__ void load_rows(float* dst, int str, const float* src, long long ld, i
     float* o = dst + j * str + d;
     o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
   }
+}
+
+// mean[d]: the mean over rows < n of column d of the shared array a, in a
+// fixed order (each of P = blockDim / HD threads of a column sums every
+// P-th row, then the P partial sums in order); red holds blockDim floats.
+// Ends with the block synchronised.
+template <int HD>
+__device__ void window_mean(const float* a, int str, int n, float* red, float* mean) {
+  const int P = (int)blockDim.x >= HD ? (int)blockDim.x / HD : 1;
+  for (int e = threadIdx.x; e < P * HD; e += blockDim.x) {
+    const int d = e % HD, part = e / HD;
+    float s = 0.f;
+    for (int j = part; j < n; j += P) s += a[j * str + d];
+    red[e] = s;
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < HD; d += blockDim.x) {
+    float s = 0.f;
+    for (int part = 0; part < P; ++part) s += red[part * HD + d];
+    mean[d] = s / n;
+  }
+  __syncthreads();
+}
+
+// a -= mean in each row < n of the shared array
+template <int HD>
+__device__ void subtract_rows(float* a, int str, int n, const float* mean) {
+  for (int e = threadIdx.x; e < n * HD; e += blockDim.x) a[(e / HD) * str + e % HD] -= mean[e % HD];
 }
 
 // x / (|x| + 1e-6) for each row < n of the shared array
@@ -638,7 +682,7 @@ __device__ __forceinline__ void load_frag_rows(float (&v)[HD / 8][4], const floa
 
 // o = softmax(c q^ k^T + bias) v for 16 query rows a warp; qkv (M, 3C) with
 // the head's q, k, v at columns head HD, C + head HD, 2C + head HD; o (M, C);
-// lse (R, h, n) when not null.
+// lse (R, h, n) when not null, of the logits less c q^.k^bar.
 template <int HD>
 __global__ void __launch_bounds__(32 * kAttnWarps, 2) attn_fwd_kernel(
     const float* __restrict__ qkv, const float* __restrict__ bias, const float* __restrict__ scale,
@@ -652,6 +696,9 @@ __global__ void __launch_bounds__(32 * kAttnWarps, 2) attn_fwd_kernel(
   const int row = blockIdx.x, head = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
   float* Pw = reinterpret_cast<float*>(tok + np) + warp * 16 * AT::PSTR;
+  float* kbar = reinterpret_cast<float*>(tok + np) + (blockDim.x >> 5) * 16 * AT::PSTR;
+  float* vbar = kbar + HD;
+  float* red = vbar + HD;
   const long long ld = 3LL * C;
   window_tokens(tok, g, row);
   __syncthreads();
@@ -659,6 +706,11 @@ __global__ void __launch_bounds__(32 * kAttnWarps, 2) attn_fwd_kernel(
   load_rows<HD>(Vs, AT::VSTR, qkv + 2 * C + head * HD, ld, np, n, tok);
   __syncthreads();
   normalise_rows<HD>(Ks, AT::KSTR, n);
+  __syncthreads();
+  window_mean<HD>(Ks, AT::KSTR, n, red, kbar);
+  window_mean<HD>(Vs, AT::VSTR, n, red, vbar);
+  subtract_rows<HD>(Ks, AT::KSTR, n, kbar);
+  subtract_rows<HD>(Vs, AT::VSTR, n, vbar);
   __syncthreads();
   const int i0 = (blockIdx.z * (blockDim.x >> 5) + warp) * 16;
   if (i0 >= n) return;
@@ -712,10 +764,11 @@ __global__ void __launch_bounds__(32 * kAttnWarps, 2) attn_fwd_kernel(
 #pragma unroll
   for (int d = 0; d < HD / 8; ++d) {
     const int col = head * HD + 8 * d + 2 * t;
+    const float v0 = vbar[8 * d + 2 * t], v1 = vbar[8 * d + 2 * t + 1];
     *reinterpret_cast<float2*>(o + tok0 * C + col) =
-        make_float2(oacc[d][0] * inv0, oacc[d][1] * inv0);
+        make_float2(v0 + oacc[d][0] * inv0, v1 + oacc[d][1] * inv0);
     *reinterpret_cast<float2*>(o + tok1 * C + col) =
-        make_float2(oacc[d][2] * inv1, oacc[d][3] * inv1);
+        make_float2(v0 + oacc[d][2] * inv1, v1 + oacc[d][3] * inv1);
   }
   if (lse && t == 0) {
     float* lr = lse + ((long long)row * g.h + head) * n + i0 + gq;
@@ -756,12 +809,14 @@ __device__ __forceinline__ void cosine_norm_bwd_store(const float (&dy)[HD / 8][
   }
 }
 
-// The attention backward. Blocks z < nqc take 16 queries a warp: with
+// The attention backward, the window's mean rows taken out as in the
+// forward. Blocks z < nqc take 16 queries a warp: with
 // P = exp(c q^ k^T + bias - lse), dP = do v^T, D = do.o and ds = P (dP - D),
 // dq = c ds k^ through the cosine norm, ds into dsbuf (R, h, n, n) and each
 // warp's share of dscale = sum ds (q^.k^) into dsc (R, h, nqc, kAttnWarps).
 // Blocks z >= nqc take 16 keys a warp: dv = P^T do, dk = c ds^T q^ through
-// the cosine norm. dqkv (M, 3C) as qkv.
+// the cosine norm. dqkv (M, 3C) as qkv. dP and the products into dq and dk
+// add each k step in float32 (EXACT).
 template <int HD>
 __global__ void __launch_bounds__(32 * kAttnWarps, 2) attn_bwd_kernel(
     const float* __restrict__ qkv, const float* __restrict__ o, const float* __restrict__ dout,
@@ -784,14 +839,22 @@ __global__ void __launch_bounds__(32 * kAttnWarps, 2) attn_bwd_kernel(
   float* Ll = Dl + np;
   int* tok = reinterpret_cast<int*>(Ll + np);
   float* Pw = reinterpret_cast<float*>(tok + np) + warp * 16 * AT::PSTR;
+  float* kbar = reinterpret_cast<float*>(tok + np) + warps * 16 * AT::PSTR;
+  float* vbar = kbar + HD;
+  float* red = vbar + HD;
   window_tokens(tok, g, row);
   __syncthreads();
   if ((int)blockIdx.z < nqc) {
-    // ---- queries: S1 = k^, S2 = v
+    // ---- queries: S1 = k^ - k^bar, S2 = v - vbar
     load_rows<HD>(S1, AT::KSTR, qkv + C + head * HD, ld, np, n, tok);
     load_rows<HD>(S2, AT::KSTR, qkv + 2 * C + head * HD, ld, np, n, tok);
     __syncthreads();
     normalise_rows<HD>(S1, AT::KSTR, n);
+    __syncthreads();
+    window_mean<HD>(S1, AT::KSTR, n, red, kbar);
+    window_mean<HD>(S2, AT::KSTR, n, red, vbar);
+    subtract_rows<HD>(S1, AT::KSTR, n, kbar);
+    subtract_rows<HD>(S2, AT::KSTR, n, vbar);
     __syncthreads();
     const int i0 = (blockIdx.z * warps + warp) * 16;
     float* dscw = dsc + (bh * nqc + blockIdx.z) * kAttnWarps;
@@ -804,15 +867,17 @@ __global__ void __launch_bounds__(32 * kAttnWarps, 2) attn_bwd_kernel(
     float qv[HD / 8][4], dov[HD / 8][4], ss0, ss1;
     load_frag_rows<HD>(qv, qkv + head * HD, ld, tok0, tok1, ss0, ss1);
     const float nrm0 = sqrtf(ss0), nrm1 = sqrtf(ss1);
-    const float f0 = 1.f / (nrm0 + 1e-6f), f1 = 1.f / (nrm1 + 1e-6f);
+    // the logit scale folded into q^ as the forward folds it
+    const float f0 = c / (nrm0 + 1e-6f), f1 = c / (nrm1 + 1e-6f);
     load_frag_rows<HD>(dov, dout + head * HD, C, tok0, tok1, ss0, ss1);
-    float D0 = 0.f, D1 = 0.f;
+    float D0 = 0.f, D1 = 0.f;  // do.(o - vbar)
 #pragma unroll
     for (int kk = 0; kk < HD / 8; ++kk) {
       const float* o0 = o + tok0 * C + head * HD + 8 * kk + t;
       const float* o1 = o + tok1 * C + head * HD + 8 * kk + t;
-      D0 += dov[kk][0] * __ldg(o0) + dov[kk][2] * __ldg(o0 + 4);
-      D1 += dov[kk][1] * __ldg(o1) + dov[kk][3] * __ldg(o1 + 4);
+      const float va = vbar[8 * kk + t], vb = vbar[8 * kk + t + 4];
+      D0 += dov[kk][0] * (__ldg(o0) - va) + dov[kk][2] * (__ldg(o0 + 4) - vb);
+      D1 += dov[kk][1] * (__ldg(o1) - va) + dov[kk][3] * (__ldg(o1 + 4) - vb);
     }
     D0 = quad_sum(D0), D1 = quad_sum(D1);
     const float lse0 = lse[bh * n + i0 + gq], lse1 = lse[bh * n + i0 + gq + 8];
@@ -825,7 +890,7 @@ __global__ void __launch_bounds__(32 * kAttnWarps, 2) attn_bwd_kernel(
     for (int jc = 0; jc < np; jc += KC) {
       float s[KC / 8][4], dp[KC / 8][4];
       rows_times_t<HD, true>(s, qv, f0, f1, S1, jc);
-      rows_times_t<HD, false>(dp, dov, 1.f, 1.f, S2, jc);
+      rows_times_t<HD, true>(dp, dov, 1.f, 1.f, S2, jc);
 #pragma unroll
       for (int j = 0; j < KC / 8; ++j) {
         const int col = jc + 8 * j + 2 * t;
@@ -835,9 +900,9 @@ __global__ void __launch_bounds__(32 * kAttnWarps, 2) attn_bwd_kernel(
           const float bv[4] = {ba.x, ba.y, bb.x, bb.y};
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const float p = expf(c * s[j][i] + bv[i] - (i < 2 ? lse0 : lse1));
+            const float p = expf(s[j][i] + bv[i] - (i < 2 ? lse0 : lse1));
             const float ds = p * (dp[j][i] - (i < 2 ? D0 : D1));
-            part.add(ds * s[j][i]);
+            part.add(ds * s[j][i]);  // c times this thread's share
             dp[j][i] = ds;
           }
           *reinterpret_cast<float2*>(ds0 + col) = make_float2(dp[j][0], dp[j][1]);
@@ -848,7 +913,7 @@ __global__ void __launch_bounds__(32 * kAttnWarps, 2) attn_bwd_kernel(
       }
       tile_to_smem(Pw, dp);
       __syncwarp();
-      tile_times<HD>(dq, Pw, S1, AT::KSTR, jc);
+      tile_times<HD, true>(dq, Pw, S1, AT::KSTR, jc);
       __syncwarp();
     }
 #pragma unroll
@@ -856,11 +921,20 @@ __global__ void __launch_bounds__(32 * kAttnWarps, 2) attn_bwd_kernel(
 #pragma unroll
       for (int i = 0; i < 4; ++i) dq[d][i] *= c;
     cosine_norm_bwd_store<HD>(dq, qkv + head * HD, dqkv + head * HD, ld, tok0, tok1, nrm0, nrm1);
-    const float share = warp_sum(part.s);
+    const float share = warp_sum(part.s) / c;
     if (lane == 0) dscw[warp] = share;
     return;
   }
-  // ---- keys: S1 = q^, S2 = do, then D and lse per query row
+  // ---- keys: k^bar and vbar from the rows the query blocks take them
+  // from, then S1 = q^, S2 = do, and D = do.(o - vbar) and lse per query row
+  load_rows<HD>(S1, AT::KSTR, qkv + C + head * HD, ld, np, n, tok);
+  __syncthreads();
+  normalise_rows<HD>(S1, AT::KSTR, n);
+  __syncthreads();
+  window_mean<HD>(S1, AT::KSTR, n, red, kbar);
+  load_rows<HD>(S1, AT::KSTR, qkv + 2 * C + head * HD, ld, np, n, tok);
+  __syncthreads();
+  window_mean<HD>(S1, AT::KSTR, n, red, vbar);
   load_rows<HD>(S1, AT::KSTR, qkv + head * HD, ld, np, n, tok);
   load_rows<HD>(S2, AT::KSTR, dout + head * HD, C, np, n, tok);
   __syncthreads();
@@ -869,7 +943,7 @@ __global__ void __launch_bounds__(32 * kAttnWarps, 2) attn_bwd_kernel(
     const float* orow = o + (long long)tok[i] * C + head * HD;
     float D = 0.f;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) D += S2[i * AT::KSTR + d] * __ldg(orow + d);
+    for (int d = 0; d < HD; ++d) D += S2[i * AT::KSTR + d] * (__ldg(orow + d) - vbar[d]);
     Dl[i] = D;
     Ll[i] = lse[bh * n + i];
   }
@@ -882,12 +956,21 @@ __global__ void __launch_bounds__(32 * kAttnWarps, 2) attn_bwd_kernel(
   const float nrm0 = sqrtf(ss0), nrm1 = sqrtf(ss1);
   const float f0 = 1.f / (nrm0 + 1e-6f), f1 = 1.f / (nrm1 + 1e-6f);
   load_frag_rows<HD>(vv, qkv + 2 * C + head * HD, ld, tok0, tok1, ss0, ss1);
+  // the warp's keys as k^ - k^bar and v - vbar
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    const float ka = kbar[8 * kk + t], kb = kbar[8 * kk + t + 4];
+    const float va = vbar[8 * kk + t], vb = vbar[8 * kk + t + 4];
+    kv[kk][0] = kv[kk][0] * f0 - ka, kv[kk][1] = kv[kk][1] * f1 - ka;
+    kv[kk][2] = kv[kk][2] * f0 - kb, kv[kk][3] = kv[kk][3] * f1 - kb;
+    vv[kk][0] -= va, vv[kk][1] -= va, vv[kk][2] -= vb, vv[kk][3] -= vb;
+  }
   float dv[HD / 8][4] = {}, dk[HD / 8][4] = {};
   const float* bc0 = bmat + j0 + gq;  // bias[i][j] at bc0 + i n (rows j, j + 8)
   for (int ic = 0; ic < np; ic += KC) {
     float s[KC / 8][4], dp[KC / 8][4];
-    rows_times_t<HD, true>(s, kv, f0, f1, S1, ic);
-    rows_times_t<HD, false>(dp, vv, 1.f, 1.f, S2, ic);
+    rows_times_t<HD, true>(s, kv, 1.f, 1.f, S1, ic);
+    rows_times_t<HD, true>(dp, vv, 1.f, 1.f, S2, ic);
 #pragma unroll
     for (int j = 0; j < KC / 8; ++j)
 #pragma unroll
@@ -908,7 +991,7 @@ __global__ void __launch_bounds__(32 * kAttnWarps, 2) attn_bwd_kernel(
     __syncwarp();
     tile_to_smem(Pw, dp);
     __syncwarp();
-    tile_times<HD>(dk, Pw, S1, AT::KSTR, ic);
+    tile_times<HD, true>(dk, Pw, S1, AT::KSTR, ic);
     __syncwarp();
   }
 #pragma unroll
@@ -1113,7 +1196,8 @@ cudaError_t attn_fwd(const float* qkv, const float* bias, const float* scale, fl
                      int R, int C, int nw, const Geom& g, cudaStream_t st) {
   using A = Attn<HD>;
   const int np = attn_np(g.n);
-  const int smem = (np * (A::KSTR + A::VSTR + 1) + attn_warps(g.n) * 16 * A::PSTR) * 4;
+  const int smem =
+      (np * (A::KSTR + A::VSTR + 1) + attn_warps(g.n) * (16 * A::PSTR + 32) + 2 * HD) * 4;
   static int allowed = 0;
   cudaError_t e = allow_smem(attn_fwd_kernel<HD>, smem, allowed);
   if (e != cudaSuccess) return e;
@@ -1128,7 +1212,7 @@ cudaError_t attn_bwd(const float* qkv, const float* o, const float* dout, const 
                      int R, int C, int nw, const Geom& g, cudaStream_t st) {
   using A = Attn<HD>;
   const int np = attn_np(g.n), nqc = attn_chunks(g.n);
-  const int smem = (np * (2 * A::KSTR + 3) + attn_warps(g.n) * 16 * A::PSTR) * 4;
+  const int smem = (np * (2 * A::KSTR + 3) + attn_warps(g.n) * (16 * A::PSTR + 32) + 2 * HD) * 4;
   static int allowed = 0;
   cudaError_t e = allow_smem(attn_bwd_kernel<HD>, smem, allowed);
   if (e != cudaSuccess) return e;

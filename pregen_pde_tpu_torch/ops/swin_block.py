@@ -21,7 +21,11 @@ kernels of ``pregen_pde_tpu/ops/swin_block.py``, ``_fwd_kernel`` and
 what the backward needs (qkv, o, the attention's log-sum-exps, both
 LayerNorms' x̂ and rstd, x2, the MLP pre-activation), so the backward
 recomputes nothing; otherwise (``evaluate``'s inference mode) it saves
-nothing. ``launches`` counts the forward kernels enqueued
+nothing. The kernels take each window's mean rows of k̂ and v out of the
+attention's products (the same values in exact arithmetic, float32's
+accuracy where a window's tokens are alike), so the log-sum-exps the card
+saves are of the logits less the row constant c q̂·k̄; the plain versions
+keep the uncentred form. ``launches`` counts the forward kernels enqueued
 (``KERNELS_PER_CALL`` a call), ``bwd_launches`` the backward's
 (``BWD_KERNELS_PER_CALL``); the C entry points report them.
 

@@ -1,5 +1,6 @@
 """Time-pair datasets over the (N, T, H, W, 6) contract (the port's copy of
-the JAX package's ``training/datasets.py``; numpy only).
+the JAX package's ``training/datasets.py``; numpy only, apart from the
+span ``pregen.train.load`` around the loader's assembly of a batch).
 
 - sample index = (trajectory, (t1, t2)) where the (t1, t2) table enumerates
   ``t = time_step_size·i → time_step_size·j`` for ``j ≥ i`` with ``(j−i) ∈
@@ -18,6 +19,8 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+
+from pregen_pde_tpu_torch.utils.trace import span
 
 TIME_NORMALIZER = 19.0  # (t2 - t1)/19 — reference `CNO_TimeLoaders.py:229`
 
@@ -234,10 +237,12 @@ class BatchLoader:
         if self.shuffle:
             self.rng.shuffle(order)
         for s in range(0, len(order) - (self.bs - 1 if self.drop_last else 0), self.bs):
-            idxs = order[s : s + self.bs]
-            times, inps, labs = zip(*(self.ds[int(i)] for i in idxs))
-            yield {
-                "time": np.stack(times),
-                "input": np.stack(inps),
-                "label": np.stack(labs),
-            }
+            with span("pregen.train.load"):
+                idxs = order[s : s + self.bs]
+                times, inps, labs = zip(*(self.ds[int(i)] for i in idxs))
+                batch = {
+                    "time": np.stack(times),
+                    "input": np.stack(inps),
+                    "label": np.stack(labs),
+                }
+            yield batch

@@ -5,6 +5,11 @@
   global-norm clip outside the tiers (``training/optim.py``);
 - the train step: ``model.train()``, forward, relative-Lp loss in float32,
   backward (through the kernels' backward on a CUDA device), clip, update;
+  its phases are the spans ``pregen.train.h2d`` (the batch onto the
+  device), ``.forward`` (the model and the loss), ``.backward`` (the last
+  step's gradients dropped, then ``loss.backward()``) and ``.optimizer``
+  (the clip and the update), each around what it enqueues, with no sync
+  (``utils/trace.py``);
 - the eval step: the per-sample relative-Lp error in %, reduced on the
   device, so only (B,) numbers per batch leave it;
 - ``fit``: the epoch mean of the loss, ``mean_val_rel_%`` over the val
@@ -34,6 +39,7 @@ import torch
 from pregen_pde_tpu_torch.training.losses import relative_lp_loss
 from pregen_pde_tpu_torch.training.metrics import summarize_rel_errors
 from pregen_pde_tpu_torch.training.optim import build_optimizer
+from pregen_pde_tpu_torch.utils.trace import span
 
 CKPT_NAME = "best.pt"
 
@@ -127,12 +133,16 @@ class Trainer:
 
     def train_step(self, batch: dict) -> torch.Tensor:
         """One update; returns the loss as a device scalar (no host sync)."""
-        inp, time, lab = self._batch(batch)
+        with span("pregen.train.h2d"):
+            inp, time, lab = self._batch(batch)
         self.model.train()
-        loss = self.loss_fn(self.model(inp, time).float(), lab)
-        self.optimizer.zero_grad()
-        loss.backward()
-        self.optimizer.step()
+        with span("pregen.train.forward"):
+            loss = self.loss_fn(self.model(inp, time).float(), lab)
+        with span("pregen.train.backward"):
+            self.optimizer.zero_grad()
+            loss.backward()
+        with span("pregen.train.optimizer"):
+            self.optimizer.step()
         return loss.detach()
 
     @torch.inference_mode()

@@ -314,6 +314,47 @@ def test_k3_backward_kernel_matches_plain(B, hw, c, heads, ws, nw):
 
 
 @pytest.mark.cuda
+def test_k3_backward_keeps_float32_accuracy_where_tokens_are_alike():
+    """Stage 0 of scOT-B at B 4 with windows of alike tokens (a uniform
+    stretch of flow: one token plus 0.1 of noise) and weights at the model's
+    init law, where the attention backward's sums cancel. With each window's
+    mean rows taken out of the products the cotangents that come of them
+    (dscale, dq's wq and bq, dk's wk) sit no farther from float64 than
+    plain float32 does (0.03-0.17 of its distance on an H100; 3xTF32 on the
+    uncentred operands read 2-4x, and 13-76x on scOT-B's training step)."""
+    _need_cuda()
+    from pregen_pde_tpu_torch.models.scot import shift_attn_mask
+    from pregen_pde_tpu_torch.ops import swin_block as sb
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    B, hw, c, heads, ws = 4, 32, 96, 3, 16
+    n, dev = ws * ws, "cuda"
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    w = lambda *s: 0.02 * rn(*s)
+    zero = lambda *s: torch.zeros(*s, device=dev)
+    one = lambda *s: torch.ones(*s, device=dev)
+    mask = torch.from_numpy(shift_attn_mask(hw, hw, ws, ws // 2)).to(dev)
+    args = (rn(1, 1, 1, c) + 0.1 * rn(B, hw, hw, c),
+            16.0 * torch.sigmoid(rn(1, heads, n, n)) + mask[:, None],
+            torch.full((heads,), 10.0, device=dev), w(c, c), zero(c), w(c, c), w(c, c), zero(c),
+            w(c, c), zero(c), one(B, c), zero(B, c), w(4 * c, c), zero(4 * c), w(c, 4 * c),
+            zero(c), one(B, c), zero(B, c), one(B, 2))
+    dy = 1e-6 * rn(B, hw, hw, c)
+    static = (heads, ws, 1e-5, ws // 2)
+
+    def grads(fn, dtype):
+        ins = [a.to(dtype).clone().requires_grad_() for a in args]
+        return torch.autograd.grad(fn(*ins, *static), ins, dy.to(dtype))
+
+    got = grads(sb.swin_block, torch.float32)
+    f32 = grads(lambda *a: sb.swin_block_fwd_plain(*a)[0], torch.float32)
+    f64 = grads(lambda *a: sb.swin_block_fwd_plain(*a)[0], torch.float64)
+    for i, name in ((2, "dscale"), (3, "dwq"), (4, "dbq"), (5, "dwk")):
+        kernel, plain = rel_l2(got[i], f64[i]), rel_l2(f32[i], f64[i])
+        assert kernel <= plain, (name, kernel, plain)
+
+
+@pytest.mark.cuda
 def test_k3_inference_mode_saves_nothing():
     """Under ``torch.inference_mode()`` the forward leaves only y allocated
     and gives the y it gives under autograd, to the bit; the shift folded

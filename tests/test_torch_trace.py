@@ -258,3 +258,64 @@ def test_masked_retry_fetch_bytes_follow_the_rows(monkeypatch, attempt_rows):
     assert tot["pregen.masked.fetch"]["bytes"] == (4 + len(attempt_rows)) * row
     assert tot["pregen.masked.finite"]["calls"] == 2
 
+
+
+TRAIN_SPANS = ["pregen.train.h2d", "pregen.train.forward", "pregen.train.backward",
+               "pregen.train.optimizer"]
+
+
+def _tiny_training(batch_size=2):
+    from pregen_pde_tpu_torch.models.fno import FNO2d
+    from pregen_pde_tpu_torch.training.datasets import (BatchLoader, TimePairConfig,
+                                                        TimePairDataset)
+    from pregen_pde_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    shard = np.random.default_rng(0).normal(size=(6, 4, 8, 8, 6)).astype(np.float32)
+    train = TimePairDataset(shard, TimePairConfig(max_num_time_steps=3, allowed_transitions=[1],
+                                                  n_val=1, n_test=1), "train")
+    torch.manual_seed(0)
+    model = FNO2d(in_channels=7, out_channels=3, modes=2, width=4, n_layers=1, head_width=4)
+    trainer = Trainer(model, TrainerConfig(batch_size=batch_size), device="cpu")
+    trainer.init_state()
+    return trainer, BatchLoader(train, batch_size, seed=0)
+
+
+def test_train_step_spans_once_a_step():
+    """One CPU train step: each ``pregen.train.*`` phase once, in order, a
+    host op with no device mirror; the loader's span once a batch it
+    assembles."""
+    trainer, loader = _tiny_training()
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        batch = next(iter(loader))
+        trainer.train_step(batch)
+    names = [r[0] for r in _events(prof)]
+    assert names == ["pregen.train.load"] + TRAIN_SPANS
+    assert all(r[3].device_type == torch.autograd.DeviceType.CPU for r in _events(prof))
+    tot = trace.totals()
+    assert {k: v["calls"] for k, v in tot.items()} == {k: 1 for k in names}
+    trace.reset()
+    assert sum(1 for _ in loader) == len(loader) == 6
+    assert trace.totals()["pregen.train.load"]["calls"] == len(loader)
+    _assert_names_are_safe(tot)
+
+
+def test_cli_train_prints_spans_on_stderr(tmp_path, capsys):
+    """``train --model scot`` on a small contract: the K3/K4 launch line
+    first on standard output, the spans' totals last on standard error:
+    each train phase once a step, the loader once a batch (``fit``'s peek,
+    the train and the val batches)."""
+    from pregen_pde_tpu_torch.__main__ import main
+
+    data = np.random.default_rng(1).normal(size=(20, 3, 32, 32, 6)).astype(np.float32)
+    np.save(tmp_path / "d.npy", data)
+    main(["train", "--model", "scot", "--data", str(tmp_path / "d.npy"), "--epochs", "1",
+          "--batch-size", "4", "--device", "cpu"])
+    cap = capsys.readouterr()
+    assert list(json.loads(cap.out.splitlines()[0])) == ["kernel_launches"]
+    spans = json.loads(cap.err.splitlines()[-1])["spans"]
+    # 16 train trajectories × 2 pairs → 8 steps; 2 val trajectories → 1 batch
+    for name in TRAIN_SPANS:
+        assert spans[name]["calls"] == 8, name
+    assert spans["pregen.train.load"]["calls"] == 1 + 8 + 1
+    _assert_names_are_safe(spans)
