@@ -149,15 +149,28 @@ Phases (any failure exits nonzero; no phase catches a failure):
     parameter's gradient within relative L2 1.1e-3 (the worst printed), the
     exact launches of one step (K3 48 × 5 forward and 48 × 8 backward, K4
     16 and 16 × 1); both routes timed;
+19a. the fused AdamW (``csrc/adamw.cu``, two launches a step) against its
+    plain version, the ``_foreach`` route, on scOT-B's 1,580 leaves (157.7
+    M parameters, N(0, 0.02²)) under the four scOT tiers with decay: five
+    steps of N(0, 10⁻⁸) gradients from the same state (global norm ~1.3,
+    the clip at 5 not engaged; two leaves without a gradient on steps 2
+    and 4): p, m and v bit-equal, ``.grad`` untouched, 2 launches a step;
+    then both routes and torch's own fused AdamW kernel (``_fused_adamw_``,
+    ``profile_scot.library_adamw``; its update rounds differently, its
+    parting from the kernel's p printed) timed by events, as the host's
+    enqueue, and as device time by events with the enqueue off the clock
+    (``queued_ms``), against the bytes bound (p, g, m, v read and p, m, v
+    written once, g read once more for the norm);
 20. the train main path: ``train --model scot-B --epochs 1 --batch-size 16
     --ckpt <tmp>`` in a subprocess on phase 10's shard (32 steps, 3 val
-    batches): the exact launches of all four kernels, finite loss and val
+    batches): the exact launches of all four kernels and the fused AdamW's
+    (2 a step), finite loss and val
     numbers, ``best.pt`` written; then ``evaluate --ckpt <tmp>/best.pt``
     prints finite errors;
 21. ``mix-sweep --model scot-B --alphas 0.5 --total-trajectories 16
     --epochs 1`` in a subprocess, hard = phase 10's ``fpo_multi_hole``
     shard, easy = 16 ``fpo_regular`` trajectories generated here: finite
-    numbers for both test splits, every kernel launched.
+    numbers for both test splits, every kernel launched (the AdamW's too).
 
 22. K5a (the periodic Laplacian) and K5b (the fused Heun heat step) are
     built in phase 2 beside the others; their build seconds are printed;
@@ -579,6 +592,26 @@ def device_kernel_names(fn, launched, kernel: str, tries: int = 3) -> tuple[list
     return names, enqueued, attempt
 
 
+def queued_ms(fn, host_s: float, reps: int = 4) -> float:
+    """The device's ms a call of ``fn`` by CUDA events, the host's enqueue
+    kept off the clock: the card sleeps (``torch.cuda._sleep``, cycles at
+    no more than 2 GHz) while the host enqueues all ``reps`` calls, ``host_s``
+    seconds a call as measured, and the first event follows the sleep. The
+    profiler's device time can miss a kernel (phase 15); this cannot."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * reps * host_s + 0.02) * 2e9))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def timed(fn, reps: int = 1):
     import torch
 
@@ -655,9 +688,10 @@ def main(argv=None) -> None:
     from pregen_pde_tpu_torch.ops import swin_block as sb
     from pregen_pde_tpu_torch.ops import window_attention as wa
 
-    from pregen_pde_tpu_torch.ops import stencil
+    from pregen_pde_tpu_torch.ops import adamw, stencil
 
-    names = (snc.LIB_NAME, npc.LIB_NAME, sb.LIB_NAME, wa.LIB_NAME, stencil.LIB_NAME)
+    names = (snc.LIB_NAME, npc.LIB_NAME, sb.LIB_NAME, wa.LIB_NAME, stencil.LIB_NAME,
+             adamw.LIB_NAME)
     pool = ThreadPoolExecutor(max_workers=len(names))
     builds = {name: pool.submit(build.build, name) for name in names}
     # K5a's wrong-wrap mutant (phase 23) and, with --parent, that tree's K4
@@ -934,7 +968,7 @@ def main(argv=None) -> None:
     }
     k2_line, fpo = k2_phases(dev, card, builds[npc.LIB_NAME], t0_build)
     k3_line, k4_line = scot_phases(dev, card, builds, t0_build, fpo, args.parent)
-    k3_bwd_line, k4_bwd_line, fpo_regular = train_phases(dev, card, fpo)
+    k3_bwd_line, k4_bwd_line, adamw_line, fpo_regular = train_phases(dev, card, fpo)
     k5a_line, k5b_line = heat_phases(dev, card, builds[stencil.LIB_NAME], t0_build,
                                      builds["k5a_wrong_wrap"])
     pool.shutdown()
@@ -942,7 +976,7 @@ def main(argv=None) -> None:
     fno_phases(dev, card, fpo, fpo_regular)
     cno_phases(dev, card, fpo, fpo_regular)
     say(json.dumps({"kernels": [k1_line, k2_line, k3_line, k4_line, k3_bwd_line, k4_bwd_line,
-                                k5a_line, k5b_line]}))
+                                k5a_line, k5b_line, adamw_line]}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
@@ -1525,17 +1559,18 @@ def scot_phases(dev, card: str, builds: dict, t0_build: float, fpo,
     return k3_line, k4_line
 
 
-def train_phases(dev, card: str, fpo) -> tuple[dict, dict, object]:
+def train_phases(dev, card: str, fpo) -> tuple[dict, dict, dict, object]:
     """Phases 17-21: the backward kernels of K4 and K3, one scOT-B train
-    step in two routes, and the ``train`` and ``mix-sweep`` main paths. →
-    the kernels line's entries of K3's and K4's backward, and phase 21's
-    ``fpo_regular`` shard."""
+    step in two routes, the fused AdamW, and the ``train`` and ``mix-sweep``
+    main paths. → the kernels line's entries of K3's and K4's backward and
+    of the AdamW, and phase 21's ``fpo_regular`` shard."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from pregen_pde_tpu_torch.kernels import build
     from pregen_pde_tpu_torch.models.scot import shift_attn_mask
+    from pregen_pde_tpu_torch.ops import adamw
     from pregen_pde_tpu_torch.ops import swin_block as sb
     from pregen_pde_tpu_torch.ops import window_attention as wa
     from pregen_pde_tpu_torch.profile_scot import event_ms, seeded_scot, set_route
@@ -1736,6 +1771,7 @@ def train_phases(dev, card: str, fpo) -> tuple[dict, dict, object]:
         fail(f"scOT-B train step, kernels vs plain: loss rel {loss_rel:.3e}, worst gradient "
              f"{gworst} {gerrs[gworst]:.3e}, finite {finite}")
     del model, res
+    adamw_line = adamw_phase(dev, card)
 
     # -- 20. the train main path through the CLI, then evaluate of its best.pt ---------------------
     work = tempfile.mkdtemp(prefix="smoke_train_", dir=build.BUILD_DIR)
@@ -1763,7 +1799,8 @@ def train_phases(dev, card: str, fpo) -> tuple[dict, dict, object]:
         want = {sb.LIB_NAME: (steps + val_batches) * 48 * sb.KERNELS_PER_CALL,
                 f"{sb.LIB_NAME}_bwd": steps * k3_bwd_step,
                 wa.LIB_NAME: (steps + val_batches) * 16,
-                f"{wa.LIB_NAME}_bwd": steps * 16 * wa.BWD_KERNELS_PER_CALL["small"]}
+                f"{wa.LIB_NAME}_bwd": steps * 16 * wa.BWD_KERNELS_PER_CALL["small"],
+                adamw.LIB_NAME: steps * 2}  # the clip's norm and the update
         if counts != want:
             fail(f"train launches {counts}, want {want}")
         numbers = [rec["train_loss"], rec["val_mean_rel_%"], rec["val_median_rel_%"],
@@ -1790,6 +1827,7 @@ def train_phases(dev, card: str, fpo) -> tuple[dict, dict, object]:
             f"{flat_numbers(results[0]).size} numbers finite")
         k3_line["launches"] = counts[f"{sb.LIB_NAME}_bwd"]
         k4_line["launches"] = counts[f"{wa.LIB_NAME}_bwd"]
+        adamw_line["launches"] = counts[adamw.LIB_NAME]
 
         # -- 21. mix-sweep through the CLI: hard fpo_multi_hole, easy fpo_regular ----------------
         easy = os.path.join(work, "fpo_regular")
@@ -1826,7 +1864,105 @@ def train_phases(dev, card: str, fpo) -> tuple[dict, dict, object]:
             f"{alpha[0]['test_easy']['mean_rel_%']:.4f} %; launches {counts[0]} | {card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return k3_line, k4_line, easy_data
+    return k3_line, k4_line, adamw_line, easy_data
+
+
+def adamw_phase(dev, card: str) -> dict:
+    """Phase 19a: the fused AdamW against the ``_foreach`` route on scOT-B's
+    leaves, bit for bit, then timed beside torch's fused AdamW kernel. →
+    the kernels line's entry."""
+    import torch
+
+    from pregen_pde_tpu_torch.__main__ import _make_model
+    from pregen_pde_tpu_torch.ops import adamw
+    from pregen_pde_tpu_torch.profile_scot import event_ms, library_adamw
+    from pregen_pde_tpu_torch.training.optim import build_optimizer
+    from pregen_pde_tpu_torch.training.tiers import SCOT_TIER_DECAY, scot_main_tiers, scot_tier_of
+    from pregen_pde_tpu_torch.training.trainer import TrainerConfig
+
+    with torch.device("meta"):
+        shapes = [(n, p.shape) for n, p in _make_model("scot-B", 128, in_channels=7,
+                                                       out_channels=3).named_parameters()]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    weights = [0.02 * torch.randn(s, generator=gen, device=dev) for _, s in shapes]
+    cfg = TrainerConfig(learning_rate=1e-3, weight_decay=0.1, grad_clip=5.0, epochs=2,
+                        lr_tiers=scot_main_tiers(1e-3, 3e-3, 4e-3))
+    routes = ("kernel", "plain", "library")
+    opts = {r: build_optimizer(cfg, 5, [(n, torch.nn.Parameter(w.clone()))
+                                        for (n, _), w in zip(shapes, weights)],
+                               tier_fn=scot_tier_of, tier_decay=SCOT_TIER_DECAY) for r in routes}
+    del weights
+    if opts["kernel"].fused is None or len(opts["kernel"].groups) != 4:
+        fail("the optimizer over scOT-B's leaves on the card did not take the fused AdamW")
+    opts["plain"].fused = opts["library"].fused = None
+    steps = {"kernel": opts["kernel"].step, "plain": opts["plain"].step,
+             "library": library_adamw(opts["library"])}
+    n_params = sum(p.numel() for p in opts["kernel"].params)
+
+    def set_grads(none=()):
+        """The same N(0, 10⁻⁸) gradient on each route's leaf (the library's
+        takes zeros where the others have none). → the kernel's gradients."""
+        given = []
+        for i, ps in enumerate(zip(*(opts[r].params for r in routes))):
+            g = 1e-4 * torch.randn(ps[0].shape, generator=gen, device=dev)
+            for r, p in zip(routes, ps):
+                p.grad = g.clone() if i not in none else (
+                    torch.zeros_like(g) if r == "library" else None)
+            given.append(None if i in none else g)
+        return given
+
+    bits = lambda ts: torch.cat([t.detach().reshape(-1) for t in ts]).view(torch.int32)
+    state = lambda o: {"p": bits(o.params), "m": bits([o.m[id(p)] for p in o.params]),
+                       "v": bits([o.v[id(p)] for p in o.params])}
+    adamw.reset_launches()
+    norms = []
+    for k in range(5):
+        given = set_grads(none=(3, 700) if k in (1, 3) else ())
+        for r in routes:
+            steps[r]()
+        norms.append(float(opts["kernel"].fused.clip_out[0]))
+        if not all((p.grad is None) if g is None else torch.equal(p.grad, g)
+                   for p, g in zip(opts["kernel"].params, given)):
+            fail("the fused AdamW changed a .grad")
+    torch.cuda.synchronize()
+    got, want = state(opts["kernel"]), state(opts["plain"])
+    differ = {k: int((got[k] != want[k]).sum()) for k in got}
+    p_k, p_l = got["p"].view(torch.float32), state(opts["library"])["p"].view(torch.float32)
+    top = p_k.abs().max()
+    lib_ulps = float((p_k - p_l).abs().max() / (torch.nextafter(top, 2 * top) - top))
+    say(f"[19a] fused AdamW on scOT-B's {len(shapes)} leaves ({n_params:,} parameters), four "
+        f"tiers, decay on, 5 steps, global norm {min(norms):.4f}..{max(norms):.4f} (clip 5.0): "
+        f"elements of p, m, v differing from the _foreach route {differ} (bar 0); launches "
+        f"{adamw.launches} (want 10); torch's _fused_adamw_ parts from the kernel's p by "
+        f"{lib_ulps:.1f} ulps of max|p| (it rounds otherwise; not a bar)")
+    if any(differ.values()) or adamw.launches != 10 or not max(norms) < 5.0:
+        fail(f"fused AdamW vs the _foreach route: differing elements {differ}, launches "
+             f"{adamw.launches} (want 10), norms {norms}")
+    del got, want, p_k, p_l
+    times = {}
+    for r in routes:
+        set_grads()
+        host = host_us(steps[r], 10) / 1e3
+        # the _foreach route waits on the card within a step, so its queue
+        # drains: its device time by events would hold the host's too
+        times[r] = (event_ms(steps[r], 10),
+                    None if r == "plain" else queued_ms(steps[r], host / 1e3), host)
+    # p, g, m, v read and p, m, v written once, g read once more for the norm;
+    # the clip and the update take ~20 float32 operations an element
+    b_ms, b_by = bound(8 * 4 * n_params, 20 * n_params)
+    say(f"[19a] one step by events / device / host enqueue: kernel "
+        f"{' / '.join(f'{t:.3f}' for t in times['kernel'])} ms | plain (_foreach) "
+        f"{times['plain'][0]:.3f} / - / {times['plain'][2]:.3f} ms | torch _fused_adamw_ "
+        f"{' / '.join(f'{t:.3f}' for t in times['library'])} ms | bound {b_ms:.3f} ms ({b_by}; "
+        f"{b_ms / times['kernel'][1]:.1%} of it reached on the device) | {card}")
+    del opts, steps
+    torch.cuda.empty_cache()
+    return {"name": adamw.LIB_NAME, "route": "cuda",
+            "source": "pregen_pde_tpu_torch/csrc/adamw.cu", "replaces": None,
+            "max_abs_err": 0.0, "ms": times["kernel"][0], "device_ms": times["kernel"][1],
+            "host_ms": times["kernel"][2], "plain_ms": times["plain"][0],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": times["library"][0],
+            "library_device_ms": times["library"][1], "library_parts_by_ulps": lib_ulps}
 
 
 def graph_ms(fn, reps: int = 200) -> float:
@@ -2264,7 +2400,8 @@ def fno_phases(dev, card: str, fpo, fpo_regular) -> None:
         say(f"[27] train (no --model: FNO) --data fpo_multi_hole --epochs 1 --batch-size 16: "
             f"{wall:.2f} s wall incl. start-up; {rec[0]['time_s']:.2f} s for the epoch's steps; "
             f"train loss {rec[0]['train_loss']:.5f}, val mean {rec[0]['val_mean_rel_%']:.4f} %; "
-            f"launches {counts[0]} (FNO runs no hand-written kernel) | {card}")
+            f"launches {counts[0]} (FNO's model runs no hand-written kernel; its optimizer "
+            f"the fused AdamW) | {card}")
         lines, wall = cli("evaluate", "--data", hard, "--ckpt", os.path.join(ckpt, "best.pt"),
                           "--batch-size", "16")
         res = [l for l in lines if "patterns" in l]

@@ -37,7 +37,8 @@ flattened with ``/`` or a ``.pt`` state_dict of the port.
 the time-pair split and transition grammar, the trainer with the JAX
 defaults (and the scOT learning-rate tiers with ``--lr-embedding`` /
 ``--lr-time-embedding``), the loader with seed 0, ``fit`` with a val
-loader. Prints the K3/K4 forward and backward launch counts, then one JSON
+loader. Prints the K3/K4 forward and backward launch counts and the fused
+AdamW's (``ops/adamw.py``; 0 on the CPU), then one JSON
 record per epoch and ``{"best_mean_val_rel_%": ...}``; on standard error
 at the end, as ``generate`` does, ``{"spans": ...}`` (the ``pregen.train.*``
 spans of the steps and the loader among them). ``--ckpt DIR`` writes
@@ -325,19 +326,21 @@ def _cmd_evaluate(args):
 
 
 def _kernel_launches() -> dict:
-    from pregen_pde_tpu_torch.ops import swin_block, window_attention
+    from pregen_pde_tpu_torch.ops import adamw, swin_block, window_attention
 
     return {swin_block.LIB_NAME: swin_block.launches,
             f"{swin_block.LIB_NAME}_bwd": swin_block.bwd_launches,
             window_attention.LIB_NAME: window_attention.launches,
-            f"{window_attention.LIB_NAME}_bwd": window_attention.bwd_launches}
+            f"{window_attention.LIB_NAME}_bwd": window_attention.bwd_launches,
+            adamw.LIB_NAME: adamw.launches}
 
 
 def _reset_kernel_launches() -> None:
-    from pregen_pde_tpu_torch.ops import swin_block, window_attention
+    from pregen_pde_tpu_torch.ops import adamw, swin_block, window_attention
 
     swin_block.reset_launches()
     window_attention.reset_launches()
+    adamw.reset_launches()
 
 
 def _refuse_benchmark_data(args, what: str) -> None:

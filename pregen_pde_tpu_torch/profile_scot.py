@@ -21,13 +21,21 @@ Printed as one line each (the card's name and power limit first) and, with
    also at batch 16, 4 and 1 in two rounds, and
    ``torch.profiler`` over two steps of the kernel route: device busy
    against wall, the idle share, and the device ms of the top kernels by
-   name, forward and backward.
+   name, forward and backward;
+5. the optimizer alone on scOT-B's 1,580 leaves (N(0, 0.02²) weights, one
+   N(0, 10⁻⁸) gradient set, the clip on and not engaged), the fused AdamW
+   (``ops/adamw.py``) against the ``_foreach`` route and torch's own fused
+   AdamW kernel (``library_adamw``): the host's ms a step (enqueue, no
+   sync), ms a step by CUDA events, ``torch.profiler`` over 5 steps (device
+   busy time and the kernels by name) and the bytes a step allocates above
+   the resting state.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import tempfile
 import time
@@ -130,6 +138,86 @@ def _train_step_part(model, dev) -> dict:
     return out
 
 
+def library_adamw(opt):
+    """torch's own fused AdamW kernel (``torch._fused_adamw_``, what
+    ``torch.optim.AdamW(fused=True)`` calls) over ``opt``'s leaves and
+    moments, as a step function to time beside the port's kernels: a call
+    per group and decay subset, the clip's factor as its ``grad_scale``
+    (the kernel divides each gradient by max(1, norm / clip); ``.grad`` is
+    left as it is). Its update is p·(1 − lr·wd) − lr·u, optax's
+    p − lr·(u + wd·p) up to rounding: not bit-equal to the ``_foreach``
+    route. Every leaf needs a gradient."""
+    from pregen_pde_tpu_torch.training.optim import B1, B2, EPS
+
+    dev = opt.params[0].device
+    subsets = []
+    for g in opt.groups:
+        for decay in (True, False):
+            ps = [p for p, d in zip(g["params"], g["decay"]) if d == decay]
+            if ps:
+                subsets.append((g["schedule"], opt.weight_decay if decay else 0.0, ps,
+                                [opt.m[id(p)] for p in ps], [opt.v[id(p)] for p in ps],
+                                [torch.zeros((), device=dev) for _ in ps]))
+
+    @torch.no_grad()
+    def step():
+        scale = None
+        if opt.grad_clip is not None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+                [p.grad for p in opt.params])))
+            scale = torch.clamp(norm / opt.grad_clip, min=1.0)
+        for schedule, wd, ps, m, v, counts in subsets:
+            torch._foreach_add_(counts, 1.0)
+            torch._fused_adamw_(ps, [p.grad for p in ps], m, v, [], counts,
+                                lr=schedule(opt.count), beta1=B1, beta2=B2, weight_decay=wd,
+                                eps=EPS, amsgrad=False, maximize=False, grad_scale=scale)
+        opt.count += 1
+
+    return step
+
+
+def optimizer_part(dev, steps: int = 10) -> dict:
+    """Part 5: each route's host ms, event ms, profile and allocation a step."""
+    from pregen_pde_tpu_torch.__main__ import _make_model
+    from pregen_pde_tpu_torch.training.optim import build_optimizer
+    from pregen_pde_tpu_torch.training.trainer import TrainerConfig
+
+    with torch.device("meta"):
+        shapes = [(n, p.shape) for n, p in _make_model("scot-B", 128, in_channels=7,
+                                                              out_channels=3).named_parameters()]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out: dict = {"leaves": len(shapes), "parameters": sum(math.prod(s) for _, s in shapes)}
+    for route in ("fused", "foreach", "library"):
+        named = [(n, torch.nn.Parameter(0.02 * torch.randn(s, generator=gen, device=dev)))
+                 for n, s in shapes]
+        opt = build_optimizer(TrainerConfig(epochs=1), 100, named)
+        step = opt.step
+        if route != "fused":
+            opt.fused = None
+        if route == "library":
+            step = library_adamw(opt)
+        for _, p in named:
+            p.grad = 1e-4 * torch.randn(p.shape, generator=gen, device=dev)
+        step()  # warm-up: the library's load, the allocator's pools
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            step()
+            host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = {"host_ms": [h * 1e3 for h in host], "event_ms": event_ms(step, steps)}
+        torch.cuda.synchronize()
+        res["step_alloc_bytes"] = torch.cuda.max_memory_allocated() - base
+        _, res["profiled_5_steps"] = _profiled(lambda: [step() for _ in range(5)])
+        out[route] = res
+        del named, opt
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(prog="pregen_pde_tpu_torch.profile_scot")
     p.add_argument("--json", help="write the full results here")
@@ -160,6 +248,9 @@ def main(argv=None) -> dict:
     res["train_step_B16"] = _train_step_part(model, dev)
     print(f"scOT-B 128^2 B=16 train step: {json.dumps(res['train_step_B16'])} | {card}",
           flush=True)
+    del model
+    res["optimizer"] = optimizer_part(dev)
+    print(f"scOT-B optimizer step: {json.dumps(res['optimizer'])} | {card}", flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(res, f, indent=1)

@@ -16,6 +16,14 @@ The update is optax's arithmetic, written out in torch ``_foreach`` ops:
 - the schedule is evaluated at the count *before* the update (0 at the
   first step), with ``total_steps = epochs × steps_per_epoch``.
 
+On a CUDA device the same arithmetic runs as the hand-written kernels of
+``ops/adamw.py`` (``csrc/adamw.cu``): the clip's norm and the update of
+every leaf in two launches, operation by operation as the ``_foreach``
+route rounds them, so the results are bit-equal to it unless the clip
+engages (then the norm's order of summation differs). A CUDA leaf that is
+not float32 and contiguous raises; leaves on the CPU take the ``_foreach``
+route.
+
 Decay semantics of a tier: "all" decays every member (biases too),
 "none" nothing, "matrix" the parameters of two or more dimensions (the
 port's parameters have the flax leaves' ranks).
@@ -27,6 +35,8 @@ import math
 from typing import Callable
 
 import torch
+
+from pregen_pde_tpu_torch.ops import adamw
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -75,10 +85,18 @@ class TieredAdamW:
         self.reset()
 
     def reset(self) -> None:
-        """Moments to zero and the count to 0 (``tx.init``)."""
+        """Moments to zero and the count to 0 (``tx.init``); on a CUDA device
+        the kernels' rows over the new moments."""
         self.count = 0
         self.m = {id(p): torch.zeros_like(p) for p in self.params}
         self.v = {id(p): torch.zeros_like(p) for p in self.params}
+        self.fused = None
+        if adamw.on_card(self.params):
+            self.fused = adamw.FusedAdamW(
+                self.params, [self.m[id(p)] for p in self.params],
+                [self.v[id(p)] for p in self.params],
+                [i for i, g in enumerate(self.groups) for _ in g["params"]],
+                [d for g in self.groups for d in g["decay"]])
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -86,6 +104,13 @@ class TieredAdamW:
 
     @torch.no_grad()
     def step(self) -> None:
+        if self.fused is not None:
+            t = self.count + 1
+            self.fused.step(self.m.values(), self.v.values(),
+                            [-g["schedule"](self.count) for g in self.groups], 1.0 - B1 ** t,
+                            1.0 - B2 ** t, B1, B2, EPS, self.weight_decay, self.grad_clip)
+            self.count += 1
+            return
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         if self.grad_clip is not None:
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))

@@ -915,3 +915,218 @@ def test_three_spectral_batches_pin_once(monkeypatch):
     assert tot["pregen.fetch.pin"]["bytes"] == 8 * 4 * 128 * 128 * 6 * 4
     assert "pregen.fetch.pageable" not in tot
     assert len(addrs) == 1 and fetch.pool().pinned_bytes == 8 * 4 * 128 * 128 * 6 * 4
+
+
+# -- the fused AdamW (csrc/adamw.cu, ops/adamw.py) against the _foreach route
+
+
+def _scot_b_leaves():
+    """scOT-B's leaves at 128², 7 → 3 channels: (name, shape) in the model's order."""
+    from pregen_pde_tpu_torch.__main__ import _make_model
+
+    with torch.device("meta"):
+        model = _make_model("scot-B", 128, in_channels=7, out_channels=3)
+    return [(n, tuple(p.shape)) for n, p in model.named_parameters()]
+
+
+def _adamw_copies(leaves, n, tiered=False, weight_decay=0.1, grad_clip=5.0, seed=0):
+    """``n`` optimizers over identical N(0, 0.02²) copies of ``leaves`` on
+    the card, the scOT main tiers (4 groups) or one group; every copy but
+    the first set to the ``_foreach`` route."""
+    from pregen_pde_tpu_torch.training.optim import build_optimizer
+    from pregen_pde_tpu_torch.training.tiers import SCOT_TIER_DECAY, scot_main_tiers, scot_tier_of
+    from pregen_pde_tpu_torch.training.trainer import TrainerConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    weights = [(name, 0.02 * torch.randn(s, generator=gen, device="cuda")) for name, s in leaves]
+    cfg = TrainerConfig(learning_rate=1e-3, weight_decay=weight_decay, grad_clip=grad_clip,
+                        epochs=2, lr_tiers=scot_main_tiers(1e-3, 3e-3, 4e-3) if tiered else None)
+    tier = dict(tier_fn=scot_tier_of, tier_decay=SCOT_TIER_DECAY) if tiered else {}
+    opts = [build_optimizer(cfg, 3, [(name, torch.nn.Parameter(w.clone())) for name, w in weights],
+                            **tier) for _ in range(n)]
+    assert len(opts[0].groups) == (4 if tiered else 1)
+    assert opts[0].fused is not None
+    for o in opts[1:]:
+        o.fused = None
+    return opts
+
+
+def _set_grads(opts, gen, scale, none=()):
+    """The same N(0, scale²) gradient on each copy of a leaf; None for the
+    leaves in ``none``. → the gradients given."""
+    given = []
+    for i, ps in enumerate(zip(*(o.params for o in opts))):
+        g = None if i in none else scale * torch.randn(ps[0].shape, generator=gen, device="cuda")
+        for p in ps:
+            p.grad = None if g is None else g.clone()
+        given.append(g)
+    return given
+
+
+def _state_bits(opt):
+    """p, m and v of every leaf, as int32 bit patterns, each one flat tensor."""
+    flat = lambda ts: torch.cat([t.detach().reshape(-1) for t in ts]).view(torch.int32)
+    return {"p": flat(opt.params), "m": flat([opt.m[id(p)] for p in opt.params]),
+            "v": flat([opt.v[id(p)] for p in opt.params])}
+
+
+def _ulps(a_bits, b_bits):
+    """Floats apart, from int32 bit patterns (the sign-magnitude order)."""
+    order = lambda b: torch.where(b < 0, -(b.long() & 0x7FFFFFFF), b.long())
+    return (order(a_bits) - order(b_bits)).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight_decay", [0.1, 0.0], ids=["decay", "no-decay"])
+@pytest.mark.parametrize("tiered", [False, True], ids=["one-group", "four-tiers"])
+def test_adamw_kernel_bit_equal_to_foreach_on_scot_b(tiered, weight_decay):
+    """Five steps on scOT-B's 1,580 leaves with the clip on but not engaged
+    (global norm ~1.3 < 5), two leaves without a gradient on steps 2 and 4:
+    p, m and v bit-equal to the ``_foreach`` route's; ``.grad`` untouched;
+    two launches a step; the step allocates under 16 MB."""
+    _need_cuda()
+    from pregen_pde_tpu_torch.ops import adamw
+
+    opts = _adamw_copies(_scot_b_leaves(), 2, tiered, weight_decay)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    adamw.reset_launches()
+    for step in range(5):
+        given = _set_grads(opts, gen, 1e-4, none=(3, 700) if step in (1, 3) else ())
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        opts[0].step()
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base < 16 * 2 ** 20
+        assert float(opts[0].fused.clip_out[0]) < 5.0
+        opts[1].step()
+        for p, g in zip(opts[0].params, given):
+            assert (p.grad is None) if g is None else torch.equal(p.grad, g)
+    assert adamw.launches == 2 * 5
+    got, want = _state_bits(opts[0]), _state_bits(opts[1])
+    for k in got:
+        assert torch.equal(got[k], want[k]), (k, int(_ulps(got[k], want[k]).max()))
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_with_the_clip_engaged(monkeypatch):
+    """Five steps on scOT-B's leaves at a global norm ~12.6 > 5, four tiers:
+    the kernel's norm within 1 ulp of float64's and within 2 of the
+    ``_foreach`` route's own (a sum in another order); given the kernel's
+    norm, that route's p, m and v are bit-equal to the kernel's; left to its
+    own, its p is within 4 ulps of the parameters' largest magnitude (an
+    element near nought parts by more of its own ulps: the update's
+    rounding, on the update's scale, not its own)."""
+    _need_cuda()
+    opts = _adamw_copies(_scot_b_leaves(), 3, tiered=True)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bits = lambda t: t.float().reshape(1).view(torch.int32)
+    for _ in range(5):
+        given = _set_grads(opts, gen, 1e-3)
+        exact = torch.stack([g.double().square().sum() for g in given]).sum().sqrt()
+        own = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(given)))
+        opts[0].step()
+        norm = opts[0].fused.clip_out[0].clone()
+        assert float(norm) > 5.0
+        assert int(_ulps(bits(norm), bits(exact))) <= 1
+        assert int(_ulps(bits(norm), bits(own))) <= 2
+        with monkeypatch.context() as m:
+            m.setattr(torch.linalg, "vector_norm", lambda *a, **k: norm)
+            opts[1].step()
+        opts[2].step()
+    got, given_norm, own_norm = (_state_bits(o) for o in opts)
+    for k in got:
+        assert torch.equal(got[k], given_norm[k]), k
+    p, p_own = got["p"].view(torch.float32), own_norm["p"].view(torch.float32)
+    top = p.abs().max()
+    assert float((p - p_own).abs().max()) <= 4 * float(torch.nextafter(top, 2 * top) - top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_clip", [5.0, None], ids=["clip", "no-clip"])
+def test_adamw_kernel_odd_leaves_and_a_nan(grad_clip):
+    """Leaves of odd sizes at every 4-byte offset (the element-wise path and
+    the ragged tails), one without a gradient, then a NaN in one gradient:
+    the same bits as the ``_foreach`` route, NaN where it has NaN (every
+    leaf under the clip, whose norm turns NaN; that leaf alone without it);
+    one launch a step without the clip."""
+    _need_cuda()
+    from pregen_pde_tpu_torch.ops import adamw
+    from pregen_pde_tpu_torch.training.optim import TieredAdamW, make_schedule
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sizes = [1, 3, 5, 16384, 16385, 40001, 7, 2]
+    bases = [torch.randn(n + 3, generator=gen, device="cuda") for n in sizes]
+    opts = []
+    for _ in range(2):
+        params = [torch.nn.Parameter(b.clone()[k % 4: k % 4 + n])
+                  for k, (b, n) in enumerate(zip(bases, sizes))]
+        assert len({p.data_ptr() % 16 for p in params}) == 4
+        groups = [{"name": "a", "params": params[:4], "decay": [True, False, True, True],
+                   "schedule": make_schedule("cosine", 1e-2, 6)},
+                  {"name": "b", "params": params[4:], "decay": [False, True, True, False],
+                   "schedule": make_schedule("constant", 3e-3, 6)}]
+        opts.append(TieredAdamW(groups, 0.1, grad_clip))
+    opts[1].fused = None
+    adamw.reset_launches()
+    for step in range(3):
+        given = _set_grads(opts, gen, 0.5, none=(2,))
+        if step == 2:
+            for o in opts:
+                o.params[5].grad[17] = float("nan")
+        for o in opts:
+            o.step()
+    assert adamw.launches == 3 * (2 if grad_clip else 1)
+    for k, (a, b) in enumerate(zip(opts[0].params, opts[1].params)):
+        a, b = a.detach(), b.detach()
+        assert torch.equal(a.isnan(), b.isnan()), k
+        assert torch.equal(a[~a.isnan()], b[~b.isnan()]), k
+        assert bool(a.isnan().all()) == (grad_clip is not None)
+        assert bool(a.isnan().any()) == (grad_clip is not None or k == 5)
+    assert given[2] is None
+
+
+@pytest.mark.cuda
+def test_adamw_reset_and_what_the_kernel_refuses():
+    """``reset()`` zeroes the moments and rebuilds the rows: the next steps
+    are bit-equal to the ``_foreach`` route's after its reset. A float64 or
+    non-contiguous CUDA leaf, a non-contiguous gradient, and a moment
+    rebound without ``reset()`` (the rows would update the old one), raise."""
+    _need_cuda()
+    from pregen_pde_tpu_torch.training.optim import TieredAdamW, make_schedule
+
+    leaves = [(f"w{i}", s) for i, s in enumerate([(64, 48), (48,), (3, 5, 7), (1,)])]
+    opts = _adamw_copies(leaves, 2)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for step in range(4):
+        if step == 2:
+            old = opts[0].fused
+            for o in opts:
+                o.reset()
+            assert opts[0].fused is not old and opts[0].count == 0
+            assert all(float(t.abs().max()) == 0 for t in opts[0].m.values())
+            opts[1].fused = None
+        _set_grads(opts, gen, 0.05)  # global norm ~2.8: the clip not engaged
+        for o in opts:
+            o.step()
+    got, want = _state_bits(opts[0]), _state_bits(opts[1])
+    assert all(torch.equal(got[k], want[k]) for k in got)
+
+    group = lambda p: [{"name": "a", "params": [p], "decay": [True],
+                        "schedule": make_schedule("constant", 1e-3, 1)}]
+    for p in (torch.nn.Parameter(torch.zeros(4, 3, device="cuda", dtype=torch.float64)),
+              torch.nn.Parameter(torch.zeros(4, 3, device="cuda").t())):
+        with pytest.raises(ValueError, match="float32, contiguous"):
+            TieredAdamW(group(p), 0.1, 5.0)
+    p = torch.nn.Parameter(torch.zeros(4, 3, device="cuda"))
+    opt = TieredAdamW(group(p), 0.1, 5.0)
+    p.grad = torch.ones(3, 4, device="cuda").t()
+    with pytest.raises(ValueError, match="contiguous gradients"):
+        opt.step()
+    p.grad = torch.ones(4, 3, device="cuda")
+    opt.step()
+    opt.v[id(p)] = opt.v[id(p)].clone()
+    with pytest.raises(RuntimeError, match="moment's storage moved"):
+        opt.step()
+    opt.reset()
+    opt.step()

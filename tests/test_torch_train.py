@@ -253,7 +253,8 @@ def test_cli_train_evaluate_mix_sweep_cpu(tmp_path, capsys):
     main(base + ["--epochs", "1", "--ckpt", str(ckpt)])
     lines = _cli_lines(capsys)
     assert lines[0] == {"kernel_launches": {"swin_block": 0, "swin_block_bwd": 0,
-                                            "window_attention": 0, "window_attention_bwd": 0}}
+                                            "window_attention": 0, "window_attention_bwd": 0,
+                                            "adamw": 0}}
     assert lines[1]["epoch"] == 0 and np.isfinite(lines[1]["train_loss"])
     assert lines[2] == {"best_mean_val_rel_%": lines[1]["mean_val_rel_%"]}
     assert (ckpt / "best.pt").is_file()
