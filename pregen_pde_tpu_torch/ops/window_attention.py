@@ -75,7 +75,8 @@ _F32 = torch.float32
 # the entry points take their arguments packed as int64 behind one pointer:
 # ctypes converts every argument of every call, and the forward's call is
 # host bound (at scOT-B's stage 3 the wrapper took 31.0 µs of host time a
-# call packed, 36.5 with 28 typed arguments; NVIDIA H100, variants.py)
+# call packed, 36.5 with 28 typed arguments; NVIDIA H100, CHANGES.md's entry
+# on K4's forward redesign)
 _FWD_ARGS, _BWD_ARGS = struct.Struct("28q"), struct.Struct("46q")
 _typed: dict = {}
 

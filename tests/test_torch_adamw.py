@@ -10,6 +10,8 @@ from pregen_pde_tpu_torch.ops import adamw
 from pregen_pde_tpu_torch.training.optim import build_optimizer
 from pregen_pde_tpu_torch.training.trainer import TrainerConfig
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 NUMELS = {"empty and one-element leaves": [0, 1, 0, 7, 1],
           "chunk edges": [8, 9, 16, 15, 17, 24],
           "a mix": [5, 0, 33, 64, 1, 2, 3, 100, 0, 8]}
@@ -122,7 +124,6 @@ def test_cpu_takes_the_foreach_route(grad_clip):
     assert opt.fused is None and opt.count == 2
     assert adamw.launches == 0
     assert all(not torch.equal(a, p) for a, p in zip(before[1:], opt.params[1:]))
-
 
 
 def test_torch_fused_adamw_timing_route_is_the_same_update():

@@ -27,19 +27,11 @@ from pregen_pde_tpu_torch.models.convert import load_checkpoint, state_dict_from
 from pregen_pde_tpu_torch.models.fourier_features import FourierFeatures
 from pregen_pde_tpu_torch.utils.parity import rel_l2
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 BAR = 1e-12  # float64 roundoff; measured ≤ 5e-15 forward, ≤ 2.3e-14 gradients
 # the small CNO of tests/test_cno.py:77-107
 SMALL = dict(n_layers=2, n_res=1, n_res_neck=1, channel_multiplier=8, latent_lift_proj_dim=8)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The suite runs several workers on the host's cores; torch's own
-    thread pool in each would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def flax_tree(named) -> dict:

@@ -28,17 +28,9 @@ from pregen_pde_tpu_torch.ops import filtered_lrelu as tfl
 from pregen_pde_tpu_torch.ops import upfirdn2d as tup
 from pregen_pde_tpu_torch.utils.parity import rel_l2
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 BAR = 1e-12  # float64 roundoff; measured ≤ 5.6e-16 forward and gradient
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The suite runs several workers on the host's cores; torch's own
-    thread pool in each would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rand(shape, seed):

@@ -23,7 +23,8 @@ from pregen_pde_tpu_torch.models import scot as tscot
 from pregen_pde_tpu_torch.models.convert import load_checkpoint, state_dict_from_flax
 from pregen_pde_tpu_torch.training import datasets as tds
 
-from test_torch_scot import KW, _flax_params, _one_torch_thread  # noqa: F401 (autouse)
+from test_torch_scot import KW, _flax_params
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 PATTERNS = [[7], [2, 2, 2, 1], [1] * 7]
 

@@ -12,6 +12,8 @@ import torch
 from pregen_pde_tpu_torch.datagen import fetch
 from pregen_pde_tpu_torch.utils import trace
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 class PlainHost:
     """An ``alloc`` over plain host memory that records each buffer made and

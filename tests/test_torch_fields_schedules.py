@@ -20,6 +20,8 @@ from pregen_pde_tpu_torch.fields.grf import draw_grf_noise, grf_filter, grf_spec
 from pregen_pde_tpu_torch.solvers import schedules as tsched
 from pregen_pde_tpu_torch.utils.parity import rel_l2, to_numpy, to_torch
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.mark.parametrize("n,alpha,tau", [(32, 2.5, 7.0), (64, 2.0, 3.0)])
 def test_grf_filter_matches_jax_on_jax_noise(n, alpha, tau):

@@ -27,9 +27,10 @@ from pregen_pde_tpu_torch.models.scot import ScOT, ScOTConfig
 from pregen_pde_tpu_torch.training import finetune as tft
 from pregen_pde_tpu_torch.utils.parity import rel_l2
 
-from test_torch_cno import SMALL, flax_tree, perturbed, _one_torch_thread  # noqa: F401 (autouse)
+from test_torch_cno import SMALL, flax_tree, perturbed
 from test_torch_fno import _contract
 from test_torch_scot import KW
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 BAR = 1e-12  # float64 roundoff; measured ≤ 5e-15
 

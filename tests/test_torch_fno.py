@@ -38,22 +38,14 @@ from pregen_pde_tpu_torch.models.ffno import FFNO2d
 from pregen_pde_tpu_torch.models.fno import FNO2d, SpectralConv2d
 from pregen_pde_tpu_torch.utils.parity import rel_l2
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 FWD_BAR = {"fno": 1e-7, "ffno": 2e-6}
 GRAD_BAR = {"fno": 2e-6, "ffno": 5e-6}
 SMALL = dict(width=8, n_layers=2)
 # (model, grid, modes, share_weight)
 CASES = [("fno", 32, 4, True), ("fno", 24, 16, True), ("ffno", 32, 4, True),
          ("ffno", 24, 20, True), ("ffno", 32, 4, False)]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The suite runs several workers on the host's cores; torch's own
-    thread pool in each would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _input(s: int, seed: int = 0, c: int = 7) -> np.ndarray:

@@ -11,6 +11,8 @@ from pregen_pde_tpu.fields import geometry as jgeo
 from pregen_pde_tpu_torch.fields import geometry as tgeo
 from pregen_pde_tpu_torch.utils.parity import to_numpy, to_torch
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.mark.parametrize("n,r0,c0,h,w", [(32, 10, 7, 9, 12), (64, 0, 50, 16, 16),
                                          (16, -3, 3, 20, 2)])

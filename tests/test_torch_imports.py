@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "pregen_pde_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "pregen_pde_tpu")
@@ -70,3 +72,27 @@ def test_scan_covers_every_slice_module():
     sources = {p.relative_to(ROOT).as_posix() for p in _sources()}
     assert {"pregen_pde_tpu_torch/models/fno.py", "pregen_pde_tpu_torch/models/ffno.py",
             "chip_smoke.py"} <= sources
+
+
+def test_port_tests_share_one_torch_thread_fixture():
+    """Every ``tests/test_torch_*.py`` but the card's own file takes the one
+    fixture of ``tests/torch_threads.py``, and no other test file sets
+    torch's thread count itself."""
+    tests = ROOT / "tests"
+    missing, own = [], []
+    for path in sorted(tests.glob("*.py")):
+        if path.name == "torch_threads.py":
+            continue
+        takes = False
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.ImportFrom) and node.module == "torch_threads":
+                takes |= "_one_torch_thread" in [a.name for a in node.names]
+            elif isinstance(node, ast.FunctionDef) and node.name == "_one_torch_thread":
+                own.append(f"{path.name}:{node.lineno} def")
+            elif isinstance(node, ast.Attribute) and node.attr == "set_num_threads":
+                own.append(f"{path.name}:{node.lineno} set_num_threads")
+        port = path.name.startswith("test_torch_")
+        if takes != (port and path.name != "test_torch_cuda.py"):
+            missing.append(path.name)
+    assert not missing, missing
+    assert not own, own

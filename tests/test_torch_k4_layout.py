@@ -14,6 +14,8 @@ import torch
 from pregen_pde_tpu.ops.window_attention import window_attention as jax_window_attention
 from pregen_pde_tpu_torch.ops import window_attention as twa
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 # float64 on both sides: the two differ by summation order only (~1e-16
 # measured); the layout itself must change nothing but that
 F64_TOL = 1e-12

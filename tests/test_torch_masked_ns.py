@@ -15,6 +15,8 @@ from pregen_pde_tpu_torch.datagen.writer import load_shards
 from pregen_pde_tpu_torch.solvers import schedules as tsched
 from pregen_pde_tpu_torch.utils.parity import rel_l2, to_numpy, to_torch
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 # the setup of tests/test_masked_ns_datagen.py: 32², 3 snapshots, horizons
 # 1100..2700 s × 2e-4 → 4..10 steps per snapshot
 FAST = dict(resolution=32, dt=0.05, n_snapshots=3, time_scale=2e-4, cg_iters=60)

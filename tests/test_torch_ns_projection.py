@@ -23,6 +23,8 @@ from pregen_pde_tpu_torch.solvers import ns_projection_cuda as npc
 from pregen_pde_tpu_torch.solvers import validation as tval
 from pregen_pde_tpu_torch.utils.parity import to_numpy, to_torch
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 N = 32
 F64_BAR = 1e-10
 DOMAINS = ["channel", "cavity"]

@@ -20,6 +20,8 @@ from pregen_pde_tpu_torch.datagen.writer import ShardWriter, load_shards, scan_e
 from pregen_pde_tpu_torch.kernels import build as kbuild
 from pregen_pde_tpu_torch.utils.parity import rel_l2, to_torch
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 def _jax_draws(key, n_traj, n):
     """The draws `generate_ns_batch` makes (`datagen/pipeline.py:239-240`,

@@ -29,6 +29,8 @@ from pregen_pde_tpu_torch.models.convert import state_dict_from_flax
 from pregen_pde_tpu_torch.ops import swin_block as tsb
 from pregen_pde_tpu_torch.ops import window_attention as twa
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 # the small config of tests/test_window_attention.py with the contract's
 # 7 -> 3 channels: grid 8, window 4, so every odd block shifts (nw = 4)
 KW = dict(image_size=16, patch_size=2, num_channels=7, num_out_channels=3, embed_dim=16,
@@ -40,16 +42,6 @@ KERNEL_TOL = 2e-5
 MODEL_TOL = 5e-5
 # single layout-sensitive modules: a few float32 ops
 LAYOUT_TOL = 1e-6
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The suite runs several workers on the host's cores; torch's own
-    thread pool in each would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _centre(path) -> float:

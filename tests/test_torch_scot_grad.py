@@ -31,7 +31,8 @@ from pregen_pde_tpu_torch.ops import window_attention as twa
 from pregen_pde_tpu_torch.training.losses import relative_lp_loss
 from pregen_pde_tpu_torch.utils.parity import rel_l2
 
-from test_torch_scot import _flax_params, _one_torch_thread  # noqa: F401 (autouse)
+from test_torch_scot import _flax_params
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 # the `_small_scot` shape of tests/test_window_attention.py: grid 8, window
 # 4 (every odd block shifts), 4 -> 2 channels, stages of C = 8 and 16

@@ -23,6 +23,8 @@ from pregen_pde_tpu_torch.training.datasets import BatchLoader, TimePairConfig, 
 from pregen_pde_tpu_torch.training.losses import relative_lp_loss
 from pregen_pde_tpu_torch.training.trainer import Trainer, TrainerConfig
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 CFG = dict(image_size=64, patch_size=4, in_channels=7, out_channels=3, embed_dim=64,
            depths=[2, 2, 2, 2], num_heads=[2, 4, 8, 16], window_size=4, mlp_ratio=4.0,
            skip_connections=[2, 2, 2, 0], drop_path_rate=0.4, layer_norm_eps=1e-5,
@@ -45,15 +47,12 @@ CPB_PARAM_TOL = 1e-7
 
 
 @pytest.fixture(autouse=True)
-def _one_thread_float64():
-    """One torch thread (the suite runs several workers), and float64 as
-    the default dtype, so the drop-path multipliers each side draws
-    (``torch.full`` of the keep probability) are float64 too."""
-    n, dtype = torch.get_num_threads(), torch.get_default_dtype()
-    torch.set_num_threads(1)
+def _float64():
+    """float64 as the default dtype, so the drop-path multipliers each side
+    draws (``torch.full`` of the keep probability) are float64 too."""
+    dtype = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)
     yield
-    torch.set_num_threads(n)
     torch.set_default_dtype(dtype)
 
 

@@ -32,6 +32,8 @@ from pregen_pde_tpu_torch.solvers.burgers import BurgersSolver
 from pregen_pde_tpu_torch.solvers.heat import HeatConfig
 from pregen_pde_tpu_torch.utils.parity import rel_l2, to_numpy
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 def _jax_noise(key, n_traj: int, shape) -> np.ndarray:
     """The white noise each JAX sampler draws from its split key
@@ -217,19 +219,3 @@ def test_cli_simple_workloads_write_shards(tmp_path, capsys):
         with pytest.raises(SystemExit):
             main(["generate", "--workload", workload, "--method", "cn_ab2_packed",
                   "--out", str(tmp_path / "x"), *base])
-
-
-def test_compare_generate_times_a_checkout(tmp_path):
-    """The A/B runner times one ``generate`` in a checkout (here this one,
-    on the CPU), removes its shards, and raises on a failed run."""
-    from pathlib import Path
-
-    from pregen_pde_tpu_torch.compare_generate import _wall
-
-    root = str(Path(__file__).resolve().parents[1])
-    args = ["--workload", "darcy", "--n", "1", "--resolution", "8", "--batch-size", "1",
-            "--device", "cpu"]
-    assert _wall(root, args) > 0.0
-    assert not (Path(root) / "pregen_pde_tpu_torch" / "_build" / "compare_generate").exists()
-    with pytest.raises(RuntimeError, match="rc 2"):
-        _wall(root, args + ["--method", "nope"])

@@ -22,6 +22,8 @@ from pregen_pde_tpu_torch.solvers import spectral_ns as tsn
 from pregen_pde_tpu_torch.solvers import spectral_ns_cuda as tsnc
 from pregen_pde_tpu_torch.utils.parity import rel_l2, to_numpy, to_torch
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 F64 = 1e-10  # float64 parity bar: same algorithm, two FFT libraries
 
 

@@ -21,6 +21,8 @@ from pregen_pde_tpu_torch.ops import stencil
 from pregen_pde_tpu_torch.solvers.heat import HeatConfig, HeatSolver, laplacian_roll
 from pregen_pde_tpu_torch.utils.parity import rel_l2, to_numpy, to_torch
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 def _grf(n: int, batch: int, seed: int, dtype=np.float64) -> np.ndarray:
     """Smooth periodic fields (the heat workload's initial conditions)."""

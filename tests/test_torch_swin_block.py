@@ -21,8 +21,8 @@ from pregen_pde_tpu.ops import swin_block as jsb
 from pregen_pde_tpu_torch.models.scot import shift_attn_mask
 from pregen_pde_tpu_torch.ops import swin_block as tsb
 
-from test_torch_scot import _one_torch_thread  # noqa: F401 (autouse)
 from test_torch_scot_grad import K3_ATOL, K3_RTOL
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 EPS = 1e-5
 

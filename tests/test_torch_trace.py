@@ -18,6 +18,8 @@ from pregen_pde_tpu_torch.kernels import build as kbuild
 from pregen_pde_tpu_torch.utils import trace
 from pregen_pde_tpu_torch.utils.trace import span
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 # names the benchmark's readers match on device events or take for its own
 FORBIDDEN = ("portbench.", "sns_cluster_kernel", "nsp_cluster_kernel", "Memcpy")
 
@@ -257,7 +259,6 @@ def test_masked_retry_fetch_bytes_follow_the_rows(monkeypatch, attempt_rows):
     assert tot["pregen.masked.k2"]["calls"] == tot["pregen.masked.fetch"]["calls"] == 2
     assert tot["pregen.masked.fetch"]["bytes"] == (4 + len(attempt_rows)) * row
     assert tot["pregen.masked.finite"]["calls"] == 2
-
 
 
 TRAIN_SPANS = ["pregen.train.h2d", "pregen.train.forward", "pregen.train.backward",

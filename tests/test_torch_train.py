@@ -32,7 +32,8 @@ from pregen_pde_tpu_torch.training import tiers as ttiers
 from pregen_pde_tpu_torch.training import trainer as ttrainer
 from pregen_pde_tpu_torch.training.optim import build_optimizer
 
-from test_torch_scot import KW, _flax_params, _one_torch_thread  # noqa: F401 (autouse)
+from test_torch_scot import KW, _flax_params
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 SCHEDULES = {"cosine": ("cosine", 0.0), "warmup-cosine": ("cosine", 0.4),
              "step": ("step", 0.0), "constant": ("constant", 0.0)}

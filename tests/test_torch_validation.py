@@ -16,22 +16,14 @@ import torch
 from pregen_pde_tpu.solvers import validation as jval
 from pregen_pde_tpu_torch.solvers import validation as tval
 
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 # n = 64, 6-cell cylinder: a t_end of exactly 2,000 steps of its dt
 CYL_N, CYL_D = 64, 6
 CYL_DT = 0.3 * (2.0 / CYL_N) / 2.0
 CYL_T_END = 2000.5 * CYL_DT
 CYL_RTOL = 1e-4    # cd_mean and the amplitude, relative (measured 0)
 ERR_RTOL = 1e-5    # e_coarse and e_fine, relative (measured 1.0e-7)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The suite runs several workers on the host's cores; torch's own
-    thread pool in each would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_run_cylinder_short_horizon_matches_jax():
