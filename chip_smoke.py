@@ -51,7 +51,16 @@ Phases (any failure exits nonzero; no phase catches a failure):
    5 × 20 steps; (d) the masked main path's own batch (``fpo_multi_hole``,
    B=32, 128², its Re draws) at time-scale 0.01: every trajectory at its
    CFL sub-bucket's dt and inner steps, longest first, in one launch
-   (exactly one counted). Then K2's interior divergence (inlet-aware,
+   (exactly one counted); (e) the masked main path's mode at B = 32 and
+   128 (the plan's batch at time-scale 0.01): K2 writing its frames in
+   place into channels 0:3 of a 6-channel contract at the plan's rows in
+   launch order, then a dt/2 retry of two rows into the same contract,
+   exactly two launches, byte-equal to K2's default route scattered at
+   those rows, channels 3-5 untouched, and against the plain version
+   writing the same contract: each row within the bar, or, where plain
+   float32 is itself farther than the bar from the plain float64 route (a
+   row whose flow amplifies roundoff), K2 no farther from float64 than
+   plain float32. Then K2's interior divergence (inlet-aware,
    [2:-2, 2:-2]) on a no-hole channel must be ≤ 2× the plain version's;
 9. the Ghia cavity through K2 at 128², Re 100 and 400: centreline
    deviations < 0.05/0.03 and < 0.07/0.06 (u/v), extrema within 8%;
@@ -1062,9 +1071,9 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
         return (cfg, masks[torch.as_tensor(rows, device=dev)],
                 torch.as_tensor(u_max[rows], dtype=torch.float32, device=dev),
                 torch.as_tensor(pr["inner"][order]), torch.as_tensor(pr["dt"][order]),
-                len(pr["plan"]))
+                len(pr["plan"]), rows)
 
-    cfg_d, masks, u_max, inner, dts, n_sub = main_plan(0.01)
+    cfg_d, masks, u_max, inner, dts, n_sub, _ = main_plan(0.01)
     sol = ProjectionSolver(ProjectionConfig(resolution=128, n_snapshots=cfg_d.n_snapshots))
     npc.reset_launches()
     k2 = npc.build_batched_traj(sol)(masks, u_max, inner, dts)
@@ -1078,6 +1087,73 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
         f"plain f32 per-snapshot rel L2 first / mid / last {err[1]:.3e} / "
         f"{err[cfg_d.n_snapshots // 2]:.3e} / {err[-1]:.3e}, worst {err.max():.3e} "
         f"(bar {K2_VS_PLAIN_BAR:.0e})")
+
+    # (e) the masked main path's mode: K2 writing in place into channels 0:3
+    # of a 6-channel contract at the plan's rows, then a dt/2 retry of two
+    # rows into the same contract. Against the plain version writing the same
+    # contract a row is held to the bar, or, where the plain float32 version
+    # is itself farther than the bar from float64 (a row whose flow amplifies
+    # roundoff over the horizon), K2 no farther from float64 than it
+    def row_gap(a, b):  # (B,) the worst snapshot's relative L2 of each row
+        num = (a - b).flatten(2).norm(dim=2)
+        return (num / b.flatten(2).norm(dim=2).clamp_min(1e-300)).max(dim=1).values.cpu().numpy()
+
+    for B in (32, 128):
+        cfg_e, masks, u_max, inner, dts, n_sub, rows = main_plan(0.01, B)
+        sol = ProjectionSolver(ProjectionConfig(resolution=128, n_snapshots=cfg_e.n_snapshots))
+        k2 = npc.build_batched_traj(sol)
+        plain = sol.make_batched_trajectory_fn()
+        sel = np.array([1, B - 2])
+        sel_d = torch.as_tensor(sel, device=dev)
+        retry = (masks[sel_d], u_max[sel_d], inner[sel], dts[sel] / 2)
+        rows_d, sel_rows_d = (torch.as_tensor(r, device=dev) for r in (rows, rows[sel]))
+        ref = k2(masks, u_max, inner, dts)
+        ref2 = k2(*retry)
+        gen_c = torch.Generator(device=dev).manual_seed(B)
+        blank = torch.randn((B, cfg_e.n_snapshots + 1, 128, 128, 6), generator=gen_c,
+                            device=dev)
+        contract, contract_p = blank.clone(), blank.clone()
+        npc.reset_launches()
+        got = k2(masks, u_max, inner, dts, out=contract, out_rows=rows)
+        k2(*retry, out=contract, out_rows=rows[sel])
+        launched = npc.launches
+        plain(masks, u_max, inner, dts, out=contract_p, out_rows=rows)
+        plain(*retry, out=contract_p, out_rows=rows[sel])
+        want = blank.clone()
+        want[rows_d, ..., 0:3] = ref
+        want[sel_rows_d, ..., 0:3] = ref2
+        torch.cuda.synchronize()
+        if got is not contract or launched != 2:
+            fail(f"K2 (e) B={B}: {launched} launches for a pass and a retry, or a new tensor")
+        if not torch.equal(contract[..., 3:], blank[..., 3:]):
+            fail(f"K2 (e) B={B}: channels 3-5 of the contract changed")
+        if contract.cpu().numpy().tobytes() != want.cpu().numpy().tobytes():
+            bad = (contract != want).flatten(1).any(dim=1).nonzero().flatten().tolist()
+            fail(f"K2 (e) B={B}: the contract is not byte-equal to the default route "
+                 f"scattered at the plan's rows (rows differing: {bad})")
+        del want, ref, ref2
+        p64 = torch.empty((B, cfg_e.n_snapshots + 1, 128, 128, 3), dtype=torch.float64,
+                          device=dev)
+        p64[rows_d] = plain(masks.double(), u_max.double(), inner, dts)
+        p64[sel_rows_d] = plain(retry[0].double(), retry[1].double(), *retry[2:])
+        k2_uvp, p32_uvp = contract[..., 0:3].double(), contract_p[..., 0:3].double()
+        if not (torch.isfinite(k2_uvp).all() and torch.isfinite(p64).all()):
+            fail(f"K2 (e) B={B}: non-finite output")
+        e32, e64, p32_64 = row_gap(k2_uvp, p32_uvp), row_gap(k2_uvp, p64), row_gap(p32_uvp, p64)
+        held = (e32 <= K2_VS_PLAIN_BAR) | (e64 <= p32_64)
+        w = int(np.argmax(e32))
+        if not held.all():
+            fail(f"K2 (e) B={B}: rows {np.nonzero(~held)[0].tolist()} beyond the bar against "
+                 f"plain f32 and farther than it from f64 (K2 vs f32 {e32[~held].tolist()}, "
+                 f"K2 vs f64 {e64[~held].tolist()}, f32 vs f64 {p32_64[~held].tolist()})")
+        say(f"[8] (e) fpo_multi_hole 128^2 B={B}, the main path's plan at time-scale 0.01 "
+            f"({n_sub} sub-buckets) written in place into a 6-channel contract at its rows, "
+            f"then a dt/2 retry of rows {rows[sel].tolist()}: {launched} launches, byte-equal "
+            f"to the default route scattered, channels 3-5 untouched; against plain f32 in "
+            f"place worst row rel L2 {e32[w]:.3e} (bar {K2_VS_PLAIN_BAR:.0e}; "
+            f"{int((e32 > K2_VS_PLAIN_BAR).sum())} rows beyond it, each no farther from f64 "
+            f"than plain f32); that row from f64: K2 {e64[w]:.3e}, plain f32 {p32_64[w]:.3e}")
+        del blank, contract, contract_p, p64, k2_uvp, p32_uvp
 
     # interior divergence on a no-hole channel, inlet-aware
     n = 128
@@ -1216,7 +1292,7 @@ def k2_phases(dev, card: str, k2_build, t0_build: float) -> dict:
     # the main path's batch at time-scale 1.0 (the reference's horizons) as
     # the one call generate_masked_ns_batch makes; its longest trajectory
     # sets the time while the card holds every image's cluster at once
-    cfg_m, masks, u_max, inner, dts, n_sub = main_plan(1.0)
+    cfg_m, masks, u_max, inner, dts, n_sub, _ = main_plan(1.0)
     sol_m = ProjectionSolver(ProjectionConfig(resolution=128, n_snapshots=cfg_m.n_snapshots))
     k2_m = npc.build_batched_traj(sol_m)
     _, t_m = timed(lambda: k2_m(masks, u_max, inner, dts))

@@ -24,9 +24,10 @@
 // into hi and lo, T1, T2, p) and its rows of CY and CY^T, all in dynamic
 // shared memory (104 KB at n = 128, 206 KB at n = 256). The cluster loops
 // over all snapshots and steps of its image in the kernel and writes frame
-// 0 and each (u, v, p) frame straight into out[b, s]; nothing else goes to
-// device memory. A call is ONE launch: grid (n/16, B), cluster (n/16, 1, 1),
-// so images with different dt and step counts share it and an image that
+// 0 and each (u, v, p) frame straight into out[b, s] (or into channels 0:3
+// of a caller's 6-channel contract, at the row the caller gives image b);
+// nothing else goes to device memory. A call is ONE launch: grid (n/16, B),
+// cluster (n/16, 1, 1), so images with different dt and step counts share it and an image that
 // goes non-finite touches no other. A block has 512 threads (one block an
 // SM) while the batch fits the card at once, and at n <= 128 256 threads
 // (two blocks an SM, twice the clusters resident) when it does not.
@@ -124,7 +125,9 @@ struct Args {
   const float4* cx_frag;         // CX, CX^T in fragment order (BasisB)
   const float4* cxT_frag;
   const float* inv_denom;       // (n, n): 1/denom, rounded once from float64
-  float* out;                   // (B, S+1, n, n, 3)
+  float* out;                   // (rows, S+1, n, n, out_c): (u, v, p) in channels 0:3
+  const int* out_rows;          // (B) the row of out image b writes; null: row b
+  int out_c;                    // channels of out (>= 3): its channel stride
 };
 
 // Shared-memory layout of one block (floats), the same in every block of a
@@ -600,15 +603,16 @@ nsp_cluster_kernel(const Args s) {
   float acc[TPW][4];
   float dv[TPW][4];
 
+  const long long row = s.out_rows != nullptr ? __ldg(s.out_rows + b) : b;
   auto write_frame = [&](int f) {
-    float* o = s.out + ((long long)b * (s.S + 1) + f) * N * N * 3 + (long long)y0 * N * 3;
+    float* o = s.out + (((row * (s.S + 1) + f) * N + y0) * N) * s.out_c;
     for (int e = tid; e < kRows * N * 3; e += kThreads) {
       const int pt = e / 3;
       const int c = e - pt * 3;
       const int r = pt / N;
       const int x = pt - r * N;
       const int i = (r + 3) * L::W + x + 2;
-      o[e] = c == 0 ? U[i] : (c == 1 ? V[i] : P[pt]);
+      o[pt * s.out_c + c] = c == 0 ? U[i] : (c == 1 ? V[i] : P[pt]);
     }
   };
   // rows y0-3 .. y0-1, y0+16, y0+17 of u, v (ghost columns included) from
@@ -849,12 +853,14 @@ extern "C" {
 
 // The whole trajectory of every image: frame 0 (rest + BCs) and, per
 // snapshot, steps[b] projection steps at dt[b], then (u, v, p) into
-// out[b, s]. One launch.
+// channels 0:3 of out[row, s] (out_c channels a point; row = out_rows[b],
+// or b when out_rows is null; the other channels are left alone). One
+// launch.
 int nsp_traj(const float* mask, const float* umax, const float* dt, const int* steps,
              const float* inlet, const float* cy, const float* cyT, const float* cx_frag,
              const float* cxT_frag, const float* inv_denom, int B, int n, int channel, int muscl,
-             int S, float nu, float eta, float dx, float dx2, float* out, void* stream,
-             int* launched) {
+             int S, float nu, float eta, float dx, float dx2, float* out, const int* out_rows,
+             int out_c, void* stream, int* launched) {
   Args a;
   a.B = B;
   a.S = S;
@@ -877,6 +883,8 @@ int nsp_traj(const float* mask, const float* umax, const float* dt, const int* s
   a.cxT_frag = reinterpret_cast<const float4*>(cxT_frag);
   a.inv_denom = inv_denom;
   a.out = out;
+  a.out_rows = out_rows;
+  a.out_c = out_c;
   if (launched != nullptr) *launched = 0;
   const int rc = dispatch(a, n, static_cast<cudaStream_t>(stream), nullptr);
   if (rc != 0) return rc;

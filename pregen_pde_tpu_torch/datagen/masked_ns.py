@@ -12,11 +12,13 @@ Per batch: Re ~ clip(N(5000, 2000²)) → Umax = Re·ν/L → the band-law horiz
 sub-buckets by the power-of-two level of its members' own CFL dt; each
 trajectory runs at the smallest dt of its sub-bucket, and the whole batch
 runs as ONE call with per-trajectory dt and inner steps, longest trajectory
-first → the storage cast on the device and the fetch into a reused
-page-locked host buffer (``datagen/fetch.py``) → the dt/2 retry of only the
-non-finite rows, all of them in one call per attempt
-(``nonfinite_retries`` times, so the count stays exact) → the (N, T, H, W,
-6) contract ``[u, v, p, Re_norm, mask, SDF]``. The plan and each row's dt
+first, writing its frames in place into the (N, T, H, W, 6) contract ``[u,
+v, p, Re_norm, mask, SDF]`` on the device → Re_norm, masks and SDFs
+broadcast into channels 3-5 there → one finiteness flag a row read back →
+the dt/2 retry of only the non-finite rows, all of them in one call per
+attempt, into the same contract (``nonfinite_retries`` times, so the count
+stays exact) → the storage cast on the device and one fetch into a reused
+page-locked host buffer (``datagen/fetch.py``). The plan and each row's dt
 and steps are the JAX package's, which ran the sub-buckets one by one (one
 compiled executable needed a scalar dt).
 
@@ -195,12 +197,30 @@ def new_stats() -> dict:
     return {"sub_buckets": 0, "retries": 0, "retried_trajectories": 0, "calls": 0}
 
 
+def finite_rows(contract: torch.Tensor, store: torch.dtype) -> torch.Tensor:
+    """(N,) bool on the contract's device: whether channels 0:3 of each row
+    of an (N, T, n, n, C) contract are all finite once cast to ``store``,
+    exactly ``np.isfinite(row.astype(store)).all()``. ``amax`` and ``amin``
+    propagate NaN and the cast rounds monotonically, so a row is finite iff
+    its largest and smallest values are; the reductions read the strided
+    view in place and allocate two values a row."""
+    uvp = contract.view(contract.shape[0], -1, contract.shape[-1])[..., 0:3]
+    return (torch.isfinite(uvp.amax(dim=(1, 2)).to(store))
+            & torch.isfinite(uvp.amin(dim=(1, 2)).to(store)))
+
+
 def generate_masked_ns_batch_from_inputs(z_re: torch.Tensor, masks: torch.Tensor,
                                          cfg: MaskedNSConfig,
                                          storage_dtype: str = "float32",
                                          stats: dict | None = None) -> np.ndarray:
     """One batch from pre-drawn inputs, computed on ``masks.device``; →
-    (N, n_snapshots+1, res, res, 6) in ``storage_dtype`` on the host."""
+    (N, n_snapshots+1, res, res, 6) in ``storage_dtype`` on the host.
+
+    The contract is one float32 device buffer: the stepper writes each
+    trajectory's frames in place into channels 0:3 of its batch row, Re_norm,
+    the mask and the SDF are broadcast into channels 3-5, each pass reads
+    back one finiteness flag a row it ran, and the whole contract is cast to
+    the storage dtype and fetched once."""
     if not cfg.per_traj_dt:
         raise NotImplementedError(
             "per_traj_dt=False (the legacy one-dt-per-bucket rule) is not ported")
@@ -216,8 +236,7 @@ def generate_masked_ns_batch_from_inputs(z_re: torch.Tensor, masks: torch.Tensor
         re_norm_np = schedules.normalize_re(re).cpu().numpy()
 
         masks = masks.to(torch.float32)
-        masks_np = masks.cpu().numpy()
-        sdfs_np = sdf_from_mask(masks).cpu().numpy()
+        sdfs = sdf_from_mask(masks)
 
     res = cfg.resolution
     # t_end is pinned: traj always gets explicit inner steps and dt
@@ -229,35 +248,49 @@ def generate_masked_ns_batch_from_inputs(z_re: torch.Tensor, masks: torch.Tensor
         pr = plan_rows(u_max_np, end_t_np, cfg)
     plan, rows, sub, horizon = pr["plan"], pr["rows"], pr["sub"], pr["horizon"]
     stats["sub_buckets"] += len(plan)
+    # Re_norm in the storage dtype from its float64 values, as numpy casts
+    # it; exact in the float32 buffer and through the final cast
+    re_norm = torch.as_tensor(re_norm_np.astype(storage_dtype), dtype=torch.float32, device=dev)
+    # allocated once the SDFs' EDT has freed its intermediate
+    contract = torch.empty((n_traj, cfg.n_snapshots + 1, res, res, 6), dtype=torch.float32,
+                           device=dev)
 
-    def _run(sel: np.ndarray, dt_sel: np.ndarray) -> np.ndarray:
+    def _launch(sel: np.ndarray, dt_sel: np.ndarray) -> tuple[np.ndarray, torch.Tensor]:
         """One call for the rows ``sel`` of the plan, each at its own dt and
-        inner steps, longest trajectory first; → frames in ``sel``'s order."""
+        inner steps, longest trajectory first, each into its batch row of
+        the contract; → the launch order and the batch rows in it."""
         inner = inner_steps_for(horizon[sel], dt_sel, cfg.n_snapshots)
         order = np.argsort(-inner, kind="stable")
         idx = rows[sel][order]
+        idx_d = torch.as_tensor(idx, device=dev)
         with span("pregen.masked.k2"):
-            frames = traj(masks[torch.as_tensor(idx, device=dev)],
-                          torch.as_tensor(u_max_np[idx], dtype=torch.float32, device=dev),
-                          torch.as_tensor(inner[order]), torch.as_tensor(dt_sel[order]))
+            traj(masks[idx_d], torch.as_tensor(u_max_np[idx], dtype=torch.float32, device=dev),
+                 torch.as_tensor(inner[order]), torch.as_tensor(dt_sel[order]),
+                 out=contract, out_rows=idx)
         stats["calls"] += 1
-        with span("pregen.masked.fetch", frames.numel() * store.itemsize):
-            if frames.dtype != store:
-                frames = frames.to(store)  # cast on the device before the fetch
-            fetched = to_host(frames)
-        with span("pregen.masked.reorder"):
-            got = np.empty_like(fetched)
-            got[order] = fetched
+        return order, idx_d
+
+    def _finite(order: np.ndarray, idx_d: torch.Tensor) -> np.ndarray:
+        """Whether each row of a launch is finite, in the order of its
+        ``sel``; the fetch of the flags waits for the launch."""
+        with span("pregen.masked.finite"):
+            flags = finite_rows(contract, store)[idx_d]
+        with span("pregen.masked.fetch", flags.numel()):
+            got = np.empty(len(order), dtype=bool)
+            got[order] = to_host(flags)
         return got
 
-    frames = _run(np.arange(len(rows)), pr["dt"])
+    dt_now = pr["dt"].copy()
+    first = _launch(np.arange(len(rows)), dt_now)
+    with span("pregen.masked.assemble"):  # an enqueue: channels 3-5 of every row
+        contract[..., 3].copy_(re_norm[:, None, None, None])
+        contract[..., 4].copy_(masks[:, None])
+        contract[..., 5].copy_(sdfs[:, None])
+    finite = _finite(*first)
     # trajectories that go non-finite (severe constrictions) re-run together
     # at dt/2 per attempt, each at its own sub-bucket's dt/2^attempt, so the
     # count stays; a retry counts once per sub-bucket with a bad row
-    dt_now = pr["dt"].copy()
     for attempt in range(cfg.nonfinite_retries):
-        with span("pregen.masked.finite"):
-            finite = np.isfinite(frames).all(axis=tuple(range(1, frames.ndim)))
         if finite.all():
             break
         bad = np.nonzero(~finite)[0]
@@ -268,19 +301,13 @@ def generate_masked_ns_batch_from_inputs(z_re: torch.Tensor, masks: torch.Tensor
                 plan[k][1], int((sub[bad] == k).sum()), len(plan[k][0]),
                 dt_now[bad][sub[bad] == k][0], attempt + 1)
         with span("pregen.masked.retry"):
-            frames[bad] = _run(bad, dt_now[bad])
+            finite[bad] = _finite(*_launch(bad, dt_now[bad]))
         stats["retries"] += len(np.unique(sub[bad]))
         stats["retried_trajectories"] += len(bad)
-    with span("pregen.masked.assemble"):
-        # the fresh array's pages are first touched by these strided writes
-        with span("pregen.masked.assemble.frames"):
-            out = np.empty((n_traj, cfg.n_snapshots + 1, res, res, 6), np.dtype(storage_dtype))
-            out[rows, :, :, :, 0:3] = frames
-        with span("pregen.masked.assemble.channels"):
-            out[:, :, :, :, 3] = re_norm_np[:, None, None, None]
-            out[:, :, :, :, 4] = masks_np[:, None, :, :]
-            out[:, :, :, :, 5] = sdfs_np[:, None, :, :]
-    return out
+    with span("pregen.masked.fetch", contract.numel() * store.itemsize):
+        if store != contract.dtype:
+            contract = contract.to(store)  # cast on the device before the fetch
+        return to_host(contract)
 
 
 def generate_masked_ns_batch(generator: torch.Generator, cfg: MaskedNSConfig,

@@ -90,6 +90,31 @@ def constants(solver: "ProjectionSolver", dtype: torch.dtype = torch.float32,
     return _constants(cfg.resolution, cfg.domain, float(cfg.length), dtype, str(device))
 
 
+def contract_rows(solver: "ProjectionSolver", out: torch.Tensor, out_rows, B: int,
+                  device: torch.device) -> torch.Tensor:
+    """``out_rows``, B distinct rows of ``out`` given on the host, as a (B,)
+    int32 tensor on ``device``, once ``out`` is checked to be a contiguous
+    float32 (rows, S+1, n, n, C) tensor there with C >= 3 (a trajectory
+    writes (u, v, p) into channels 0:3 of its row)."""
+    n, S = solver.cfg.resolution, int(solver.cfg.n_snapshots)
+    if (out.dtype != torch.float32 or out.device != torch.device(device)
+            or out.ndim != 5 or tuple(out.shape[1:4]) != (S + 1, n, n) or out.shape[4] < 3
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 (rows, {S + 1}, {n}, {n}, >=3) "
+                         f"tensor on {device}, got {out.dtype} {tuple(out.shape)} on "
+                         f"{out.device}")
+    if out_rows is None:
+        raise ValueError("out needs out_rows, the row of out of each image")
+    if isinstance(out_rows, torch.Tensor) and out_rows.device.type != "cpu":
+        raise ValueError("out_rows must be given on the host, where they are checked")
+    rows = np.asarray(out_rows)
+    if (rows.shape != (B,) or (rows < 0).any() or (rows >= out.shape[0]).any()
+            or len(np.unique(rows)) != B):
+        raise ValueError(f"out_rows must be {B} distinct rows of out's {out.shape[0]}, "
+                         f"got {rows.tolist()}")
+    return torch.as_tensor(rows, dtype=torch.int32, device=device)
+
+
 def _is_scalar(a) -> bool:
     return a is None or np.ndim(a.cpu() if isinstance(a, torch.Tensor) else a) == 0
 
@@ -385,13 +410,21 @@ class ProjectionSolver:
 
     def make_batched_trajectory_fn(self):
         """The batched ``traj(masks (B, n, n), u_max (B,) | None, inner_steps,
-        dt)`` → (B, S+1, n, n, 3): the plain PyTorch version of K2.
-        ``inner_steps`` and ``dt`` are scalars or one value per image; the
-        images are grouped by (dt, inner_steps) and each group runs through
-        ``make_trajectory_fn`` (natively batched; JAX's is its ``vmap``)."""
+        dt, out=None, out_rows=None)`` → (B, S+1, n, n, 3): the plain PyTorch
+        version of K2. ``inner_steps`` and ``dt`` are scalars or one value
+        per image; the images are grouped by (dt, inner_steps) and each group
+        runs through ``make_trajectory_fn`` (natively batched; JAX's is its
+        ``vmap``). Given a (rows, S+1, n, n, C) ``out`` and host ``out_rows``
+        (B,), image b's frames go into ``out[out_rows[b], ..., 0:3]`` instead,
+        and ``out`` is returned."""
         one = self.make_trajectory_fn()
 
-        def traj(masks: torch.Tensor, u_max=None, inner_steps=None, dt=None):
+        def traj(masks: torch.Tensor, u_max=None, inner_steps=None, dt=None, out=None,
+                 out_rows=None):
+            if out is not None:
+                rows = contract_rows(self, out, out_rows, masks.shape[0], masks.device)
+                out[rows.long(), ..., 0:3] = traj(masks, u_max, inner_steps, dt).to(out.dtype)
+                return out
             if _is_scalar(inner_steps) and _is_scalar(dt):
                 return one(masks, u_max, inner_steps, dt)
             B = masks.shape[0]

@@ -30,7 +30,7 @@ import torch
 
 from pregen_pde_tpu_torch.kernels import build as _build
 from pregen_pde_tpu_torch.solvers.ns_projection import (
-    ProjectionSolver, constants, per_image_dt, per_image_steps)
+    ProjectionSolver, constants, contract_rows, per_image_dt, per_image_steps)
 
 __all__ = ["LIB_NAME", "build_batched_traj", "supported", "launches", "reset_launches",
            "max_active_clusters", "fragment_order"]
@@ -47,7 +47,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _N = ctypes.POINTER(ctypes.c_int)  # out: kernels launched / clusters
 _ARGTYPES = {
-    "nsp_traj": [_P] * 10 + [_I] * 5 + [_F] * 4 + [_P, _P, _N],
+    "nsp_traj": [_P] * 10 + [_I] * 5 + [_F] * 4 + [_P, _P, _I, _P, _N],
     "nsp_max_active_clusters": [_I, _N],
 }
 
@@ -127,12 +127,17 @@ def max_active_clusters(n: int) -> int:
 
 
 def build_batched_traj(solver: ProjectionSolver):
-    """``traj(masks (B, n, n), u_max (B,) | None, inner_steps=None, dt=None)``
-    → (B, n_snapshots+1, n, n, 3) float32 [u, v, p], frame 0 = rest + BCs;
-    the same contract as the plain batched trajectory. ``inner_steps`` and
-    ``dt`` are scalars shared by the batch or one value per image (dt is
-    rounded once to float32); the kernel reads both from device arrays, so
-    one build serves every bucket, every dt and every mix of them."""
+    """``traj(masks (B, n, n), u_max (B,) | None, inner_steps=None, dt=None,
+    out=None, out_rows=None)`` → (B, n_snapshots+1, n, n, 3) float32 [u, v,
+    p], frame 0 = rest + BCs; the same contract as the plain batched
+    trajectory. ``inner_steps`` and ``dt`` are scalars shared by the batch or
+    one value per image (dt is rounded once to float32); the kernel reads
+    both from device arrays, so one build serves every bucket, every dt and
+    every mix of them. Given a contiguous float32 (rows, n_snapshots+1, n, n,
+    C) ``out``, C >= 3, and ``out_rows`` (B,) on the host, the kernel stores
+    image b's frames in place into channels 0:3 of ``out[out_rows[b]]``
+    (a channel stride of C), leaves the other channels alone, and ``out`` is
+    returned."""
     cfg = solver.cfg
     if not supported(solver):
         raise ValueError(unsupported_reason(solver))
@@ -141,14 +146,15 @@ def build_batched_traj(solver: ProjectionSolver):
     dx = cfg.length / n
     plain = solver.make_batched_trajectory_fn()
 
-    def traj(masks: torch.Tensor, u_max=None, inner_steps=None, dt=None) -> torch.Tensor:
+    def traj(masks: torch.Tensor, u_max=None, inner_steps=None, dt=None, out=None,
+             out_rows=None) -> torch.Tensor:
         global launches
         if masks.ndim != 3 or tuple(masks.shape[1:]) != (n, n):
             raise ValueError(f"masks must be (B, {n}, {n}), got {tuple(masks.shape)}")
         B = masks.shape[0]
         dev = masks.device
         if dev.type == "cpu":
-            return plain(masks, u_max, inner_steps, dt)
+            return plain(masks, u_max, inner_steps, dt, out=out, out_rows=out_rows)
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
         steps = per_image_steps(solver, inner_steps, B)
@@ -160,7 +166,10 @@ def build_batched_traj(solver: ProjectionSolver):
         c = _kernel_bases(solver, str(dev))
         steps_d = torch.as_tensor(steps, dtype=torch.int32).to(dev)
         dt_d = torch.as_tensor(dts, dtype=torch.float32).to(dev)
-        out = torch.empty((B, S + 1, n, n, 3), dtype=torch.float32, device=dev)
+        if out is None:
+            out, rows_d = torch.empty((B, S + 1, n, n, 3), dtype=torch.float32, device=dev), None
+        else:
+            rows_d = contract_rows(solver, out, out_rows, B, dev)
         launched = ctypes.c_int(0)
         with torch.cuda.device(dev):
             st = torch.cuda.current_stream(dev).cuda_stream
@@ -170,7 +179,8 @@ def build_batched_traj(solver: ProjectionSolver):
                 c["cx_frag"].data_ptr(), c["cxT_frag"].data_ptr(), c["inv_denom"].data_ptr(), B, n,
                 int(cfg.domain == "channel"), int(cfg.advection == "muscl"), S,
                 float(cfg.viscosity), float(cfg.penalization_eta), dx, dx * dx,
-                out.data_ptr(), st, ctypes.byref(launched))
+                out.data_ptr(), None if rows_d is None else rows_d.data_ptr(), out.shape[-1],
+                st, ctypes.byref(launched))
         _check("nsp_traj", rc, n)
         launches += launched.value
         # the argument arrays may be freed while the kernel is queued: the

@@ -156,6 +156,34 @@ def test_k2_batch_permutation(domain):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("domain", ["channel", "cavity"])
+def test_k2_writes_in_place_into_contract_rows(domain):
+    """Given a 6-channel contract and permuted rows, then a two-row retry at
+    dt/2 into two of the same rows, K2 stores each image's frames into
+    channels 0:3 of its row: byte-equal to its default route scattered on
+    the host, every other byte untouched; rows on the device raise."""
+    _need_cuda()
+    sol = ProjectionSolver(ProjectionConfig(resolution=128, domain=domain, n_snapshots=2))
+    masks, u_max, steps, dt = _k2_inputs(128, domain)
+    traj = npc.build_batched_traj(sol)
+    rows = np.array([5, 0, 3, 1])
+    sel, sel_rows = [1, 2], np.array([0, 3])
+    ref = traj(masks, u_max, steps, dt).cpu().numpy()
+    ref2 = traj(masks[sel], u_max[sel], steps[sel], dt[sel] / 2).cpu().numpy()
+    out = torch.full((6, 3, 128, 128, 6), 7.0, device="cuda")
+    npc.reset_launches()
+    got = traj(masks, u_max, steps, dt, out=out, out_rows=rows)
+    traj(masks[sel], u_max[sel], steps[sel], dt[sel] / 2, out=out, out_rows=sel_rows)
+    want = np.full((6, 3, 128, 128, 6), 7.0, np.float32)
+    want[rows, ..., 0:3] = ref
+    want[sel_rows, ..., 0:3] = ref2
+    assert got is out and npc.launches == 2
+    assert out.cpu().numpy().tobytes() == want.tobytes()
+    with pytest.raises(ValueError, match="on the host"):
+        traj(masks, u_max, steps, dt, out=out, out_rows=torch.as_tensor(rows, device="cuda"))
+
+
+@pytest.mark.cuda
 def test_k2_launch_count():
     _need_cuda()
     sol = ProjectionSolver(ProjectionConfig(resolution=128, n_snapshots=2))
@@ -864,8 +892,12 @@ def test_entries_fetch_byte_equal_to_a_pageable_copy(monkeypatch, storage_dtype)
                           time_scale=2e-3)
     z_re, masks = masked_ns.draw_masked_inputs(torch.Generator(device="cuda").manual_seed(5),
                                                mcfg, 4)
-    out = masked_ns.generate_masked_ns_batch_from_inputs(z_re, masks, mcfg, storage_dtype)
-    assert seen[0] == out[..., :3].nbytes and np.isfinite(out).all()
+    stats = masked_ns.new_stats()
+    out = masked_ns.generate_masked_ns_batch_from_inputs(z_re, masks, mcfg, storage_dtype,
+                                                         stats)
+    # a flag a row a pass (the retried rows' on a retry), then the contract once
+    assert seen[0] == 4 and seen[-1] == out.nbytes and len(seen) == stats["calls"] + 1
+    assert np.isfinite(out).all()
 
 
 @pytest.mark.cuda
@@ -915,6 +947,64 @@ def test_three_spectral_batches_pin_once(monkeypatch):
     assert tot["pregen.fetch.pin"]["bytes"] == 8 * 4 * 128 * 128 * 6 * 4
     assert "pregen.fetch.pageable" not in tot
     assert len(addrs) == 1 and fetch.pool().pinned_bytes == 8 * 4 * 128 * 128 * 6 * 4
+
+
+@pytest.mark.cuda
+def test_three_masked_batches_pin_once(monkeypatch):
+    """The masked entry fetches its contract into one page-locked buffer
+    batch after batch (and its flags into one more); nothing takes the
+    pageable path."""
+    _need_cuda()
+    from pregen_pde_tpu_torch.datagen import fetch, masked_ns
+    from pregen_pde_tpu_torch.utils import trace
+
+    monkeypatch.setattr(fetch, "_pool", None)  # a fresh pool
+    cfg = MaskedNSConfig(pipeline="fpo_multi_hole", resolution=128, n_snapshots=3,
+                         time_scale=2e-3, batch_size=8)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    stats = masked_ns.new_stats()
+    trace.reset()
+    addrs = set()
+    for _ in range(3):
+        out = masked_ns.generate_masked_ns_batch(gen, cfg, stats=stats)
+        assert out.shape == (8, 4, 128, 128, 6) and np.isfinite(out).all()
+        addrs.add(out.ctypes.data)
+        del out
+    tot = trace.totals()
+    contract = 8 * 4 * 128 * 128 * 6 * 4
+    assert stats["retries"] == 0 and tot["pregen.masked.fetch"]["calls"] == 6
+    assert tot["pregen.fetch.pin"]["calls"] == 2
+    assert tot["pregen.fetch.pin"]["bytes"] == contract + 8
+    assert "pregen.fetch.pageable" not in tot
+    assert len(addrs) == 1 and fetch.pool().pinned_bytes == contract + 8
+
+
+@pytest.mark.cuda
+def test_masked_entry_peak_memory_is_the_edts():
+    """At B 128, 128², 21 frames, the 0.98 GiB device contract is allocated
+    after the SDFs' EDT has freed its 1 GiB intermediate, and the flags read
+    the contract in place: the entry's peak stays within the EDT's alone
+    plus the masks."""
+    _need_cuda()
+    from pregen_pde_tpu_torch.datagen import masked_ns
+    from pregen_pde_tpu_torch.fields.geometry import sdf_from_mask
+
+    cfg = MaskedNSConfig(pipeline="fpo_multi_hole", resolution=128, time_scale=2e-3)
+    z_re, masks = masked_ns.draw_masked_inputs(torch.Generator(device="cuda").manual_seed(8),
+                                               cfg, 128)
+    masked_ns.generate_masked_ns_batch_from_inputs(z_re[:2], masks[:2], cfg)  # built, loaded
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sdf_from_mask(masks)
+    torch.cuda.synchronize()
+    edt = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    out = masked_ns.generate_masked_ns_batch_from_inputs(z_re, masks, cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert out.nbytes == 128 * 21 * 128 * 128 * 6 * 4
+    assert out.nbytes < peak <= edt + masks.nbytes, (peak, edt)
 
 
 # -- the fused AdamW (csrc/adamw.cu, ops/adamw.py) against the _foreach route

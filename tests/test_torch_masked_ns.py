@@ -72,14 +72,18 @@ def test_cfl_dt_masks_and_guards():
 
 
 def _fake_traj_factory(calls, poison_first=False):
+    """A stepper that writes ones into channels 0:3 of its contract rows;
+    with ``poison_first``, NaN into the first launched row of the first
+    call."""
     def factory(solver, device):
-        def traj(masks, u_max, inner, dt):
+        def traj(masks, u_max, inner, dt, out=None, out_rows=None):
             calls.append((to_numpy(u_max).copy(), to_numpy(dt).astype(np.float64),
                           to_numpy(inner).astype(np.int64)))
-            out = torch.ones((masks.shape[0], solver.cfg.n_snapshots + 1,
-                              masks.shape[1], masks.shape[2], 3))
+            frames = torch.ones((masks.shape[0], solver.cfg.n_snapshots + 1,
+                                 masks.shape[1], masks.shape[2], 3))
             if poison_first and len(calls) == 1:
-                out[0] = float("nan")
+                frames[0] = float("nan")
+            out[torch.as_tensor(out_rows).long(), ..., 0:3] = frames
             return out
 
         return traj
@@ -150,8 +154,9 @@ def test_nonfinite_bucket_retry(monkeypatch):
 
 def test_nonfinite_retry_span_holds_its_attempt(monkeypatch):
     """The retry of test_nonfinite_bucket_retry under a profiler: one
-    ``pregen.masked.retry`` span holding the attempt's own K2 call, fetch
-    and reorder; the fetches' bytes are the frames' bytes."""
+    ``pregen.masked.retry`` span holding the attempt's own K2 call, its
+    finiteness flags and the fetch of them that waits for it; the fetches'
+    bytes are a flag a row a pass and then the whole contract, once."""
     from torch.profiler import ProfilerActivity, profile
 
     from pregen_pde_tpu_torch.utils import trace
@@ -167,19 +172,88 @@ def test_nonfinite_retry_span_holds_its_attempt(monkeypatch):
                  if e.name.startswith("pregen.masked.")), key=lambda r: (r[1], -r[2]))
     names = [r[0] for r in ev]
     assert names == ["pregen.masked.inputs", "pregen.masked.plan", "pregen.masked.k2",
-                     "pregen.masked.fetch", "pregen.masked.reorder", "pregen.masked.finite",
-                     "pregen.masked.retry", "pregen.masked.k2", "pregen.masked.fetch",
-                     "pregen.masked.reorder", "pregen.masked.finite",
-                     "pregen.masked.assemble",
-                     "pregen.masked.assemble.frames", "pregen.masked.assemble.channels"]
+                     "pregen.masked.assemble", "pregen.masked.finite", "pregen.masked.fetch",
+                     "pregen.masked.retry", "pregen.masked.k2", "pregen.masked.finite",
+                     "pregen.masked.fetch", "pregen.masked.fetch"]
     retry = ev[6]
     inside = [r[0] for r in ev if retry[1] <= r[1] and r[2] <= retry[2] and r is not retry]
-    assert inside == ["pregen.masked.k2", "pregen.masked.fetch", "pregen.masked.reorder"]
-    frames = out[..., :3]
+    assert inside == ["pregen.masked.k2", "pregen.masked.finite", "pregen.masked.fetch"]
     tot = trace.totals()
-    # the first pass's four rows and the retried one
-    assert tot["pregen.masked.fetch"]["bytes"] == frames.nbytes + frames[:1].nbytes
-    assert tot["pregen.masked.fetch"]["calls"] == len(calls) == 2
+    # the first pass's four flags, the retried row's, and the contract
+    assert tot["pregen.masked.fetch"]["bytes"] == 4 + 1 + out.nbytes
+    assert tot["pregen.masked.fetch"]["calls"] == len(calls) + 1 == 3
+
+
+def _recording_plain_factory(record, poison):
+    """The plain stepper, each call's batch rows and frames recorded; the
+    first launched row of the first call set to ``poison``."""
+    def factory(solver, device):
+        plain = solver.make_batched_trajectory_fn()
+
+        def traj(masks, u_max, inner, dt, out=None, out_rows=None):
+            frames = plain(masks, u_max, inner, dt)
+            if not record:
+                frames[0] = poison
+            rows = torch.as_tensor(out_rows).long()
+            record.append((rows.numpy().copy(), frames.numpy().copy()))
+            out[rows, ..., 0:3] = frames
+            return out
+
+        return traj
+
+    return factory
+
+
+@pytest.mark.parametrize("poison", [float("nan"), 7e4], ids=["nan", "7e4"])
+@pytest.mark.parametrize("storage_dtype", ["float32", "float16"])
+def test_entry_byte_equal_to_a_numpy_assembly(monkeypatch, storage_dtype, poison):
+    """The batch entry's contract, byte for byte, is the plain numpy
+    assembly of its pieces: each row's frames from the last pass that ran it
+    cast to the storage dtype, Re_norm cast from float64, the masks and
+    SDFs. A NaN row is retried in both dtypes; a row of 7e4 (finite in
+    float32, inf in float16) only where it is stored in float16."""
+    from pregen_pde_tpu_torch.fields.geometry import sdf_from_mask
+
+    record = []
+    monkeypatch.setattr(tm, "_batched_traj_for", _recording_plain_factory(record, poison))
+    cfg = tm.MaskedNSConfig(pipeline="fpo_multi_hole", **FAST)
+    z_re, masks = tm.draw_masked_inputs(torch.Generator().manual_seed(4), cfg, 4)
+    stats = tm.new_stats()
+    got = tm.generate_masked_ns_batch_from_inputs(z_re, masks, cfg, storage_dtype, stats)
+    retried = int(poison != 7e4 or storage_dtype == "float16")
+    assert stats["retried_trajectories"] == retried and len(record) == 1 + retried
+    assert got.dtype == np.dtype(storage_dtype) and got.shape == (4, 4, 32, 32, 6)
+
+    re = tsched.sample_reynolds(z=z_re.double(), mean=cfg.re_mean, std=cfg.re_std)
+    want = np.empty(got.shape, storage_dtype)
+    for rows, frames in record:  # a retry overwrites the rows it re-ran
+        with np.errstate(over="ignore"):
+            want[rows, ..., 0:3] = frames.astype(storage_dtype)
+    want[..., 3] = tsched.normalize_re(re).numpy()[:, None, None, None]
+    want[..., 4] = masks.numpy()[:, None]
+    want[..., 5] = sdf_from_mask(masks).numpy()[:, None]
+    assert got.tobytes() == want.tobytes()
+    assert np.isfinite(got).all() == (retried or storage_dtype == "float32")
+
+
+@pytest.mark.parametrize("storage_dtype", ["float32", "float16"])
+def test_finite_rows_is_numpys_isfinite(storage_dtype):
+    """One flag a row, over channels 0:3 only, exactly
+    ``np.isfinite(row.astype(storage)).all()``: NaN, ±inf and, in float16,
+    values past its range are caught; ±3e38, whose sum overflows float32,
+    is finite in float32."""
+    vals = [float("nan"), float("inf"), -float("inf"), 3e38, -3e38, 7e4, -7e4, 1.0, 0.0]
+    contract = torch.zeros((len(vals) + 1, 2, 4, 4, 6))
+    contract[-1, ..., 0:3] = 3e38  # a row whose every value is large
+    for i, v in enumerate(vals):
+        contract[i, 1, 2, 3, i % 3] = v
+    contract[..., 3:] = float("nan")  # the other channels do not count
+    got = tm.finite_rows(contract, getattr(torch, storage_dtype)).numpy()
+    with np.errstate(over="ignore"):
+        want = [np.isfinite(r[..., 0:3].astype(storage_dtype)).all()
+                for r in contract.numpy()]
+    assert got.dtype == bool and got.tolist() == want
+    assert got.sum() == (7 if storage_dtype == "float32" else 2)
 
 
 def test_cli_masked_generate_writes_readable_shards(tmp_path, capsys):

@@ -240,6 +240,40 @@ def test_batched_per_image_dt_steps_equals_grouped_calls(domain):
         traj(masks, um, np.array([2, -1, 2, 2]), MIXED_DT)
 
 
+def test_plain_trajectory_writes_into_contract_rows():
+    """Given a 6- or 4-channel contract and permuted rows, the plain batched
+    trajectory (and the CUDA wrapper on CPU tensors) stores each image's
+    frames into channels 0:3 of its row, byte-equal to the default route
+    scattered there, and leaves every other byte alone; a contract or rows
+    it cannot write raise."""
+    _, tsol = _solvers("channel", n_snapshots=2)
+    masks, um = _mixed_inputs(torch.float32)
+    traj = tsol.make_batched_trajectory_fn()
+    ref = traj(masks, um, torch.as_tensor(MIXED_STEPS), torch.as_tensor(MIXED_DT)).numpy()
+    rows = np.array([5, 0, 3, 1])
+    for fn in (traj, npc.build_batched_traj(tsol)):
+        for c in (6, 4):
+            out = torch.full((6, 3, N, N, c), 7.0)
+            got = fn(masks, um, torch.as_tensor(MIXED_STEPS), torch.as_tensor(MIXED_DT),
+                     out=out, out_rows=torch.as_tensor(rows, dtype=torch.int32))
+            want = np.full((6, 3, N, N, c), 7.0, np.float32)
+            want[rows, ..., 0:3] = ref
+            assert got is out and got.numpy().tobytes() == want.tobytes()
+    ok = torch.zeros((6, 3, N, N, 6))
+    for bad_out, bad_rows, match in (
+            (torch.zeros((6, 3, N, N, 2)), rows, "contiguous float32"),
+            (torch.zeros((6, 4, N, N, 6)), rows, "contiguous float32"),
+            (ok.double(), rows, "contiguous float32"),
+            (torch.zeros((6, 3, N, N, 12))[..., ::2], rows, "contiguous float32"),
+            (ok, None, "out_rows"),
+            (ok, np.array([5, 0, 3, 5]), "distinct rows"),
+            (ok, np.array([5, 0, 3, 6]), "distinct rows"),
+            (ok, np.array([5, 0, -1, 1]), "distinct rows"),
+            (ok, rows[:3], "distinct rows")):
+        with pytest.raises(ValueError, match=match):
+            traj(masks, um, 2, 0.004, out=bad_out, out_rows=bad_rows)
+
+
 def _jax_traj_f64(jsol, mask, u_max, inner, dt):
     """make_trajectory_fn's loop (rest + BCs, then ``inner`` JAX steps per
     snapshot) in float64: JAX's own function fixes a float32 carry."""

@@ -151,8 +151,9 @@ def test_spectral_cuda_method_spans_once_a_batch():
 
 
 def test_masked_entry_spans_in_order():
-    """Inputs, plan, the first pass's K2 call, fetch and reorder, the finite
-    scan, the assembly; no retry on a sound batch."""
+    """Inputs, plan, the first pass's K2 call, the enqueue of channels 3-5,
+    the finiteness flags and their fetch, then the contract's one fetch; no
+    retry on a sound batch."""
     cfg = tm.MaskedNSConfig(pipeline="fpo_multi_hole", resolution=32, dt=0.05,
                             n_snapshots=3, time_scale=2e-4, cg_iters=60)
     z_re, masks = tm.draw_masked_inputs(torch.Generator().manual_seed(3), cfg, 3)
@@ -162,11 +163,10 @@ def test_masked_entry_spans_in_order():
     assert np.isfinite(out).all()
     names = [r[0] for r in _events(prof)]
     assert names == ["pregen.masked.inputs", "pregen.masked.plan", "pregen.masked.k2",
-                     "pregen.masked.fetch", "pregen.masked.reorder",
-                     "pregen.masked.finite", "pregen.masked.assemble",
-                     "pregen.masked.assemble.frames", "pregen.masked.assemble.channels"]
+                     "pregen.masked.assemble", "pregen.masked.finite",
+                     "pregen.masked.fetch", "pregen.masked.fetch"]
     tot = trace.totals()
-    assert tot["pregen.masked.fetch"]["bytes"] == out[..., :3].nbytes
+    assert tot["pregen.masked.fetch"]["bytes"] == len(out) + out.nbytes
     _assert_names_are_safe(tot)
 
 
@@ -232,17 +232,18 @@ def test_kernel_load_span_once_a_library(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("attempt_rows", [(0, 2), (1, 2, 3)])
 def test_masked_retry_fetch_bytes_follow_the_rows(monkeypatch, attempt_rows):
-    """A retry fetches only the rows it re-runs: the first pass's bytes plus
-    each retried row's."""
+    """A retry fetches the flags of only the rows it re-runs: the first
+    pass's flag a row plus each retried row's, then the contract once."""
     seen = []
 
     def factory(solver, device):
-        def traj(masks, u_max, inner, dt):
+        def traj(masks, u_max, inner, dt, out=None, out_rows=None):
             seen.append(masks.shape[0])
-            out = torch.ones((masks.shape[0], solver.cfg.n_snapshots + 1,
-                              masks.shape[1], masks.shape[2], 3))
+            frames = torch.ones((masks.shape[0], solver.cfg.n_snapshots + 1,
+                                 masks.shape[1], masks.shape[2], 3))
             if len(seen) == 1:
-                out[list(attempt_rows)] = float("nan")
+                frames[list(attempt_rows)] = float("nan")
+            out[torch.as_tensor(out_rows).long(), ..., 0:3] = frames
             return out
 
         return traj
@@ -253,11 +254,10 @@ def test_masked_retry_fetch_bytes_follow_the_rows(monkeypatch, attempt_rows):
     trace.reset()
     out = tm.generate_masked_ns_batch(torch.Generator().manual_seed(0), cfg, 4)
     tot = trace.totals()
-    row = out[0, ..., :3].nbytes
-    assert seen == [4, len(attempt_rows)]
+    assert seen == [4, len(attempt_rows)] and np.isfinite(out).all()
     assert tot["pregen.masked.retry"]["calls"] == 1
-    assert tot["pregen.masked.k2"]["calls"] == tot["pregen.masked.fetch"]["calls"] == 2
-    assert tot["pregen.masked.fetch"]["bytes"] == (4 + len(attempt_rows)) * row
+    assert tot["pregen.masked.k2"]["calls"] + 1 == tot["pregen.masked.fetch"]["calls"] == 3
+    assert tot["pregen.masked.fetch"]["bytes"] == 4 + len(attempt_rows) + out.nbytes
     assert tot["pregen.masked.finite"]["calls"] == 2
 
 
